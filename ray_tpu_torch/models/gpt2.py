@@ -1,0 +1,258 @@
+"""GPT-2 decoder-only transformer on PyTorch (port of ``ray_tpu/models/gpt2.py``).
+
+Parameters keep the reference's per-layer shapes (``qkv_kernel`` is
+(E, 3H, D), ``proj_kernel`` (H, D, E), ...), so converted weights are copied
+slice by slice and every product is the same einsum as in the reference.
+Parameters are stored in ``param_dtype`` and cast to ``dtype`` at each use;
+activations, residual adds and products run in ``dtype``; layernorm, softmax
+and the head's logits are f32.
+
+The reference's ``lax.scan`` over stacked layers is a Python loop over
+``blocks``.  ``attention_impl="flash"`` sends attention through the port's
+CUDA flash kernel (forward only: run it under ``torch.inference_mode()``);
+"dense" is the plain path and the one a ragged ``S`` takes.  Mixture-of-
+Experts blocks and ring attention are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.models.common import gelu, layernorm, matmul_f32
+from ray_tpu_torch.models.xent import chunked_xent
+from ray_tpu_torch.ops.attention import dense_attention
+from ray_tpu_torch.ops.flash_attention import flash_attention_bhsd
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50304  # 50257 padded to a multiple of 128
+    max_seq_len: int = 1024
+    num_layers: int = 12
+    num_heads: int = 12
+    embed_dim: int = 768
+    mlp_ratio: int = 4
+    dtype: torch.dtype = torch.bfloat16  # activation/matmul dtype
+    param_dtype: torch.dtype = torch.float32
+    attention_impl: str = "dense"  # "dense" | "flash"
+    # remat and scan_unroll shape the reference's compiled program and never
+    # its forward result; the port keeps them so that configs read the same,
+    # and they have no effect here.
+    remat: bool = True
+    # chunked cross-entropy: the lm_head + logsumexp per sequence chunk of
+    # this many tokens (0 = dense)
+    xent_chunk: int = 0
+    scan_unroll: int = 1
+    num_experts: int = 0  # > 0 (Mixture-of-Experts) is not ported yet
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @property
+    def mlp_dim(self) -> int:
+        return self.mlp_ratio * self.embed_dim
+
+    @staticmethod
+    def gpt2_124m(**kw) -> "GPTConfig":
+        return GPTConfig(**kw)
+
+    @staticmethod
+    def tiny(**kw) -> "GPTConfig":
+        kw.setdefault("vocab_size", 256)
+        kw.setdefault("max_seq_len", 128)
+        kw.setdefault("num_layers", 2)
+        kw.setdefault("num_heads", 4)
+        kw.setdefault("embed_dim", 64)
+        return GPTConfig(**kw)
+
+
+def _check_config(c: GPTConfig):
+    if c.num_experts > 0:
+        raise NotImplementedError("Mixture-of-Experts GPT-2 is not ported yet")
+    if c.attention_impl == "ring":
+        raise NotImplementedError("ring attention is not ported yet")
+    if c.attention_impl not in ("dense", "flash"):
+        raise ValueError(f"unknown attention_impl {c.attention_impl!r}")
+
+
+def _param(shape, c: GPTConfig, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=c.param_dtype, device=device))
+
+
+class Block(nn.Module):
+    """One transformer block: attention and a dense GELU MLP, pre-norm."""
+
+    def __init__(self, config: GPTConfig, device):
+        super().__init__()
+        c = self.config = config
+        E, H, D, M = c.embed_dim, c.num_heads, c.head_dim, c.mlp_dim
+        self.ln1_scale = _param((E,), c, device)
+        self.ln1_bias = _param((E,), c, device)
+        self.qkv_kernel = _param((E, 3 * H, D), c, device)
+        self.qkv_bias = _param((3 * H, D), c, device)
+        self.proj_kernel = _param((H, D, E), c, device)
+        self.proj_bias = _param((E,), c, device)
+        self.ln2_scale = _param((E,), c, device)
+        self.ln2_bias = _param((E,), c, device)
+        self.fc_kernel = _param((E, M), c, device)
+        self.fc_bias = _param((M,), c, device)
+        self.out_kernel = _param((M, E), c, device)
+        self.out_bias = _param((E,), c, device)
+
+    def forward(self, x):
+        """x: (B, S, E) in config.dtype → (B, S, E)."""
+        c = self.config
+        dt, H = c.dtype, c.num_heads
+        h = layernorm(x, self.ln1_scale, self.ln1_bias)
+        if c.attention_impl == "flash" and x.shape[1] % 128 == 0:
+            # The kernel reads q, k, v as strided (B, H, S, D) views of the
+            # projection's output: q is heads 0..H-1, k H..2H-1, v 2H..3H-1.
+            qkv = torch.einsum("bse,ehd->bhsd", h, self.qkv_kernel.to(dt)) + (
+                self.qkv_bias.to(dt)[None, :, None, :]
+            )
+            q, k, v = qkv.split(H, dim=1)
+            attn = flash_attention_bhsd(q, k, v)
+            x = x + torch.einsum(
+                "bhsd,hde->bse", attn, self.proj_kernel.to(dt)
+            ) + self.proj_bias.to(dt)
+        else:
+            qkv = torch.einsum(
+                "bse,ehd->bshd", h, self.qkv_kernel.to(dt)
+            ) + self.qkv_bias.to(dt)
+            q, k, v = qkv.split(H, dim=2)
+            attn = dense_attention(q, k, v)
+            x = x + torch.einsum(
+                "bshd,hde->bse", attn, self.proj_kernel.to(dt)
+            ) + self.proj_bias.to(dt)
+        h = layernorm(x, self.ln2_scale, self.ln2_bias)
+        h = gelu(torch.einsum("bse,em->bsm", h, self.fc_kernel.to(dt)) + self.fc_bias.to(dt))
+        return x + torch.einsum(
+            "bsm,me->bse", h, self.out_kernel.to(dt)
+        ) + self.out_bias.to(dt)
+
+
+class GPT2(nn.Module):
+    """GPT-2 with a head tied to ``wte``.  Parameters are allocated
+    uninitialised on ``device``; fill them with :func:`init` or
+    :func:`ray_tpu_torch.models.convert.gpt2_params_from_jax`."""
+
+    def __init__(self, config: GPTConfig, device="cuda"):
+        super().__init__()
+        _check_config(config)
+        device = resolve_device(device)
+        c = self.config = config
+        self.wte = _param((c.vocab_size, c.embed_dim), c, device)
+        self.wpe = _param((c.max_seq_len, c.embed_dim), c, device)
+        self.blocks = nn.ModuleList(Block(c, device) for _ in range(c.num_layers))
+        self.lnf_scale = _param((c.embed_dim,), c, device)
+        self.lnf_bias = _param((c.embed_dim,), c, device)
+
+    def embed(self, tokens):
+        """tokens (B, S) int → token plus position embedding (B, S, E) in dtype."""
+        dt = self.config.dtype
+        # The reference casts the table to dtype and then looks up; a cast
+        # commutes with the lookup bit for bit, and casting the B·S rows
+        # moves fewer bytes than casting the table.  The position add is in
+        # dtype, as there.
+        x = F.embedding(tokens, self.wte).to(dt)
+        return x + self.wpe.to(dt)[: tokens.shape[1]]
+
+    def features(self, tokens):
+        """tokens (B, S) int → final-layernorm features (B, S, E) in dtype."""
+        x = self.embed(tokens)
+        for block in self.blocks:
+            x = block(x)
+        return layernorm(x, self.lnf_scale, self.lnf_bias)
+
+    def head(self, x):
+        """Tied lm_head: features (B, S, E) → logits (B, S, V) in f32, from
+        dtype operands with f32 accumulation (see ``matmul_f32``)."""
+        return matmul_f32(x, self.wte.to(self.config.dtype).t())
+
+    def forward(self, tokens):
+        """tokens (B, S) int → logits (B, S, vocab) in f32."""
+        return self.head(self.features(tokens))
+
+
+def init(config: GPTConfig, generator: Optional[torch.Generator] = None,
+         device="cuda") -> GPT2:
+    """A GPT-2 with the reference's initialisation: N(0, 0.02), residual
+    projections N(0, 0.02 / sqrt(2 L)), position table N(0, 0.01), norms at
+    (1, 0), biases 0.  Draws from ``generator`` (default: seed 0 on
+    ``device``); the numbers differ from the reference's ``jax.random``."""
+    model = GPT2(config, device)
+    device = model.wte.device
+    g = generator if generator is not None else torch.Generator(device=device).manual_seed(0)
+    std = 0.02
+    resid_std = std / math.sqrt(2 * config.num_layers)
+
+    def normal_(p, s):
+        noise = torch.randn(p.shape, generator=g, dtype=torch.float32, device=device)
+        p.copy_(noise * s)
+
+    with torch.no_grad():
+        for blk in model.blocks:
+            normal_(blk.qkv_kernel, std)
+            normal_(blk.proj_kernel, resid_std)
+            normal_(blk.fc_kernel, std)
+            normal_(blk.out_kernel, resid_std)
+            for p in (blk.ln1_scale, blk.ln2_scale):
+                p.fill_(1.0)
+            for p in (blk.ln1_bias, blk.ln2_bias, blk.qkv_bias, blk.proj_bias,
+                      blk.fc_bias, blk.out_bias):
+                p.zero_()
+        normal_(model.wte, std)
+        normal_(model.wpe, 0.01)
+        model.lnf_scale.fill_(1.0)
+        model.lnf_bias.zero_()
+    return model
+
+
+def loss_fn(model: GPT2, batch):
+    """Next-token cross-entropy.  batch: {"tokens": (B, S+1)} or
+    {"inputs", "targets"} each (B, S), with an optional (B, S) "mask".  With
+    config.xent_chunk set (and S divisible by it) the head and softmax run
+    per sequence chunk."""
+    c = model.config
+    if "tokens" in batch:
+        inputs = batch["tokens"][:, :-1]
+        targets = batch["tokens"][:, 1:]
+    else:
+        inputs, targets = batch["inputs"], batch["targets"]
+    mask = batch.get("mask")
+    x = model.features(inputs)
+    if c.xent_chunk and inputs.shape[1] % c.xent_chunk == 0:
+        return chunked_xent(x, model.wte, targets, mask, c.xent_chunk, c.dtype)
+    logits = model.head(x)
+    # lse − target_logit in f32
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0] - lse
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def num_params(config: GPTConfig) -> int:
+    c = config
+    E, H, D, M = c.embed_dim, c.num_heads, c.head_dim, c.mlp_dim
+    per_layer = 4 * E + E * 3 * H * D + 3 * H * D + H * D * E + E + E * M + M + M * E + E
+    return (c.vocab_size + c.max_seq_len) * E + c.num_layers * per_layer + 2 * E
+
+
+def flops_per_token(config: GPTConfig, seq_len: Optional[int] = None) -> float:
+    """Approximate training FLOPs/token: 6N + attention term, with N
+    counting the tied ``wte`` (its head product is real work) and not the
+    position table.  A forward pass is a third of it."""
+    c = config
+    s = seq_len or c.max_seq_len
+    n = num_params(c) - c.max_seq_len * c.embed_dim
+    return 6 * n + 12 * c.num_layers * c.embed_dim * s

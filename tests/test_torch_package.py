@@ -1,0 +1,54 @@
+"""Boundaries of the PyTorch/CUDA port (ray_tpu_torch): it imports nothing
+of JAX or of the JAX package, and its entry points do not fall back to the
+CPU when no CUDA device is present."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "ray_tpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_files_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"gpt2.py", "flash_attention.py", "chip_smoke.py"} <= names
+
+
+def test_entry_raises_without_cuda():
+    from ray_tpu_torch.entry import entry
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
+
+
+def test_model_constructors_default_to_cuda():
+    from ray_tpu_torch.models import gpt2
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpt2.init(gpt2.GPTConfig.tiny())
+    assert gpt2.init(gpt2.GPTConfig.tiny(), device="cpu").wte.device.type == "cpu"
