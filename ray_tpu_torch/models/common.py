@@ -22,17 +22,72 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def matmul_f32(a, b):
-    """``a @ b`` of low-precision operands with f32 accumulation and an f32
-    result, never rounded to the operands' type: the reference's
-    ``preferred_element_type=jnp.float32``.
+def _mm_f32(a, b):
+    """2-D ``a @ b`` of bf16 operands, summed in f32 and returned in f32.
+    On a CUDA device one bf16 tensor-core product with an f32 output
+    (``torch.mm`` with ``out_dtype``); elsewhere the operands are widened to
+    f32 first.  Every product of two bf16 values is exact in f32, so both
+    are the same function up to summation order."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
 
-    On a CUDA device bf16 operands go through one bf16 tensor-core product
-    with an f32 output (``torch.mm`` with ``out_dtype``).  Elsewhere the
-    operands are widened to f32 first; every product of two bf16 values is
-    exact in f32, so the result is the same function up to summation order.
+
+def _split_bf16(g):
+    """An f32 tensor as hi + lo, two bf16 tensors: hi carries g's first 8
+    significant bits, lo the next 8, and g - (hi + lo) is below 2^-16 of |g|
+    (for |g| above bf16's subnormal range)."""
+    hi = g.to(torch.bfloat16)
+    # one pass: the difference is taken in f32 and rounded as it is stored
+    return hi, torch.sub(g, hi, out=torch.empty_like(hi))
+
+
+class _MatmulF32(torch.autograd.Function):
+    """bf16 ``a @ b`` with an f32 result, and the reference's gradient.
+
+    JAX's gradient of an einsum with ``preferred_element_type=f32`` takes
+    each operand's gradient as the f32 cotangent times the other operand
+    widened to f32, in f32, rounded once to the operand's dtype.  Taken so on
+    the card, the lm-head's two backward products run off the tensor cores
+    (about 1.27 TFLOP in f32 a GPT-2-124M step).  Here the cotangent is split
+    into hi + lo bf16 terms (``_split_bf16``) and each gradient is two bf16
+    tensor-core products summed in f32: since the other operand is exactly
+    bf16, that is the reference's f32 product up to summation order and a
+    residual below 2^-16 of each term, before the one rounding to bf16.
+    The backward is this formula on every device; only ``_mm_f32`` differs.
     """
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    return torch.matmul(a.float(), b.float())
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        hi, lo = _split_bf16(g)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            bt = b.t()
+            da = (_mm_f32(hi, bt) + _mm_f32(lo, bt)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            at = a.t()
+            db = (_mm_f32(at, hi) + _mm_f32(at, lo)).to(b.dtype)
+        return da, db
+
+
+def matmul_f32(a, b):
+    """``a @ b`` with f32 accumulation and an f32 result, never rounded to
+    the operands' type: the reference's ``preferred_element_type=jnp.float32``.
+    a: (..., K), b: (K, N).
+
+    bf16 operands go through :class:`_MatmulF32`, whose backward is defined
+    explicitly (``torch.mm`` with ``out_dtype`` has no derivative); f32
+    operands are a plain f32 product.
+    """
+    if a.dtype == b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if not a.dtype == b.dtype == torch.bfloat16:
+        raise ValueError(f"matmul_f32 takes bf16 or f32 operands, got {a.dtype}, {b.dtype}")
+    out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
+    return out.reshape(*a.shape[:-1], b.shape[-1])

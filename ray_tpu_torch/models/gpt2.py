@@ -8,10 +8,12 @@ activations, residual adds and products run in ``dtype``; layernorm, softmax
 and the head's logits are f32.
 
 The reference's ``lax.scan`` over stacked layers is a Python loop over
-``blocks``.  ``attention_impl="flash"`` sends attention through the port's
-CUDA flash kernel (forward only: run it under ``torch.inference_mode()``);
-"dense" is the plain path and the one a ragged ``S`` takes.  Mixture-of-
-Experts blocks and ring attention are not ported yet.
+``blocks``; with ``remat`` each block runs under ``torch.utils.checkpoint``
+when gradients are taken, as the reference wraps it in ``jax.checkpoint``.
+``attention_impl="flash"`` sends attention, forward and backward, through
+the port's CUDA flash kernels; "dense" is the plain path and the one a
+ragged ``S`` takes.  Mixture-of-Experts blocks and ring attention are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Optional
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models.common import gelu, layernorm, matmul_f32
@@ -42,13 +45,14 @@ class GPTConfig:
     dtype: torch.dtype = torch.bfloat16  # activation/matmul dtype
     param_dtype: torch.dtype = torch.float32
     attention_impl: str = "dense"  # "dense" | "flash"
-    # remat and scan_unroll shape the reference's compiled program and never
-    # its forward result; the port keeps them so that configs read the same,
-    # and they have no effect here.
+    # recompute each block's activations in the backward pass instead of
+    # keeping them (torch.utils.checkpoint); no effect without gradients
     remat: bool = True
     # chunked cross-entropy: the lm_head + logsumexp per sequence chunk of
     # this many tokens (0 = dense)
     xent_chunk: int = 0
+    # shapes the reference's compiled layer scan; the port's layer loop is
+    # Python and has nothing to unroll, so it keeps it only to read the same
     scan_unroll: int = 1
     num_experts: int = 0  # > 0 (Mixture-of-Experts) is not ported yet
 
@@ -161,15 +165,20 @@ class GPT2(nn.Module):
         # The reference casts the table to dtype and then looks up; a cast
         # commutes with the lookup bit for bit, and casting the B·S rows
         # moves fewer bytes than casting the table.  The position add is in
-        # dtype, as there.
+        # dtype, as there.  The forward is the reference's bit for bit; the
+        # gradient is not quite: the reference sums the rows of a repeated
+        # token into its bf16 table copy, in bf16, where this sums them in
+        # f32 and does not round.  Rows of a token seen n times may differ by
+        # about n bf16 roundings (2^-9 relative each) of the partial sums.
         x = F.embedding(tokens, self.wte).to(dt)
         return x + self.wpe.to(dt)[: tokens.shape[1]]
 
     def features(self, tokens):
         """tokens (B, S) int → final-layernorm features (B, S, E) in dtype."""
         x = self.embed(tokens)
+        remat = self.config.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return layernorm(x, self.lnf_scale, self.lnf_bias)
 
     def head(self, x):

@@ -1,16 +1,25 @@
-"""Chunked cross-entropy for LM heads, forward value (port of
-``ray_tpu/models/xent.py``).
+"""Chunked cross-entropy for LM heads (port of ``ray_tpu/models/xent.py``).
 
 The lm_head product and logsumexp run one sequence chunk at a time, so only
-one chunk's (B, C, V) f32 logits is alive at once.  The reference also
-recomputes each chunk in its backward pass; the port has no backward yet.
+one chunk's (B, C, V) f32 logits is alive at once.  As the reference does
+with ``jax.checkpoint``, each chunk runs under ``torch.utils.checkpoint``
+when gradients are taken: its logits are recomputed in the backward pass
+instead of living through the whole step.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.models.common import matmul_f32
+
+
+def _chunk_ll(xc, w, tc):
+    """Per-token log-likelihood (B, C) of one chunk: target logit − lse."""
+    logits = matmul_f32(xc, w)  # (B, C, V) f32
+    lse = torch.logsumexp(logits, dim=-1)
+    return torch.gather(logits, -1, tc[..., None].long())[..., 0] - lse
 
 
 def chunked_xent(x, head_weight, targets, mask, chunk: int, dtype):
@@ -24,10 +33,11 @@ def chunked_xent(x, head_weight, targets, mask, chunk: int, dtype):
     ll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     m_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, S, chunk):
-        logits = matmul_f32(x[:, c0:c0 + chunk], w)  # (B, C, V) f32
-        lse = torch.logsumexp(logits, dim=-1)
-        tc = targets[:, c0:c0 + chunk]
-        ll = torch.gather(logits, -1, tc[..., None].long())[..., 0] - lse
+        args = (x[:, c0:c0 + chunk], w, targets[:, c0:c0 + chunk])
+        if torch.is_grad_enabled():
+            ll = checkpoint(_chunk_ll, *args, use_reentrant=False)
+        else:
+            ll = _chunk_ll(*args)
         if mask is None:
             ll_sum = ll_sum + ll.sum()
             m_sum = m_sum + ll.numel()

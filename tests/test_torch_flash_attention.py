@@ -1,9 +1,9 @@
 """The port's attention ops (ray_tpu_torch.ops) against the JAX package.
 
 Inputs come from a numpy seed and go through both.  On the CPU the JAX side
-runs its Pallas kernel in interpret mode, and the port's wrapper runs the
-kernel's plain version (the CUDA kernel itself is checked on the card by
-chip_smoke.py).
+runs its Pallas kernels in interpret mode, and the port's wrappers run the
+kernels' plain versions (the CUDA kernels themselves are checked on the card
+by chip_smoke.py).
 """
 
 import math
@@ -63,11 +63,6 @@ class TestFlashForward:
         with pytest.raises(ValueError, match="divisible by 128"):
             jfa._block_sizes(100)
 
-    def test_forward_only(self):
-        q, k, v = _t(*_qkv((1, 2, 128, 64), seed=2))
-        with pytest.raises(NotImplementedError, match="forward-only"):
-            tfa.flash_attention_bhsd(q.requires_grad_(), k, v)
-
     def test_bshd_adapter_reads_strided_views(self):
         """(B, S, H, D) in, through transposed views, equals the dense path;
         the scale argument reaches the softmax."""
@@ -77,6 +72,65 @@ class TestFlashForward:
         torch.testing.assert_close(o, dense_attention(q, k, v), **F32_TOL)
         o_half = tfa.flash_attention(q, k, v, scale=0.5 / math.sqrt(64))
         torch.testing.assert_close(o_half, dense_attention(q * 0.5, k, v), **F32_TOL)
+
+
+class TestFlashBackward:
+    @staticmethod
+    def _jax_bwd(S, dtype, seed):
+        """(q, k, v, o, lse, do) as numpy and the reference's (dq, dk, dv)
+        from its forward and backward Pallas kernels in interpret mode."""
+        q, k, v = _qkv((1, 2, S, 64), seed=seed)
+        do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(np.float32)
+        jq, jk, jv, jdo = [jnp.asarray(a, dtype) for a in (q, k, v, do)]
+        scale = 1.0 / math.sqrt(64)
+        o, lse = jfa._fwd(jq, jk, jv, scale)
+        grads = jfa._bwd(jq, jk, jv, o, lse, jdo, scale)
+        as_np = lambda a: np.array(a.astype(jnp.float32))  # writable
+        return [as_np(a) for a in (jq, jk, jv, o, lse, jdo)], [as_np(g) for g in grads]
+
+    # 128: one block; 384: three 128-wide blocks, so the reference's dq is
+    # summed over kv blocks and its dk, dv over q blocks.
+    @pytest.mark.parametrize("S", [128, 384])
+    def test_matches_jax_bwd(self, S):
+        inputs, ref = self._jax_bwd(S, jnp.float32, seed=S)
+        out = tfa.flash_attention_bwd(*_t(*inputs))
+        for name, o_t, r in zip(("dq", "dk", "dv"), out, ref):
+            assert o_t.dtype == torch.float32 and o_t.shape == (1, 2, S, 64), name
+            np.testing.assert_allclose(o_t.numpy(), r, **F32_TOL, err_msg=name)
+
+    def test_bf16_matches_jax_bwd(self):
+        """bf16 at S=384.  The reference adds each of its three blocks'
+        contributions into a bf16 output, rounding after each (2^-9 of a
+        running sum that may exceed the final value); the port sums in f32
+        and rounds once.  Both round p and ds to bf16 before their products,
+        where a summation-order difference can flip a rounding.  Those few
+        roundings stay within 2e-2 of the value plus 2e-2 (|grads| up to 4)."""
+        inputs, ref = self._jax_bwd(384, jnp.bfloat16, seed=3)
+        out = tfa.flash_attention_bwd(*[torch.from_numpy(a).to(
+            torch.float32 if i == 4 else torch.bfloat16) for i, a in enumerate(inputs)])
+        for name, o_t, r in zip(("dq", "dk", "dv"), out, ref):
+            assert o_t.dtype == torch.bfloat16, name
+            np.testing.assert_allclose(o_t.float().numpy(), r, atol=2e-2, rtol=2e-2,
+                                       err_msg=name)
+
+    def test_gradcheck_f64(self):
+        """The autograd Function's backward (the plain dq and dk/dv versions
+        on saved o and lse) against finite differences, in f64."""
+        rng = np.random.default_rng(11)
+        q, k, v = [torch.from_numpy(rng.standard_normal((1, 1, 128, 16))).requires_grad_()
+                   for _ in range(3)]
+        assert torch.autograd.gradcheck(tfa.flash_attention_bhsd, (q, k, v), fast_mode=True)
+
+    def test_autograd_matches_dense(self):
+        """Gradients of the (B, S, H, D) adapter, through strided views,
+        against autograd of the dense path, f32."""
+        q, k, v = [t.requires_grad_() for t in _t(*_qkv((2, 256, 3, 64), seed=12))]
+        do = torch.from_numpy(np.random.default_rng(13).standard_normal((2, 256, 3, 64))
+                              .astype(np.float32))
+        grads = torch.autograd.grad(tfa.flash_attention(q, k, v), (q, k, v), do)
+        ref = torch.autograd.grad(dense_attention(q, k, v), (q, k, v), do)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+            torch.testing.assert_close(g, r, **F32_TOL, msg=name)
 
 
 class TestDenseAttention:
