@@ -5,16 +5,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. print the card's name and power limit; build every CUDA kernel from
-     ray_tpu_torch/csrc with nvcc, all sources at once;
+     ray_tpu_torch/csrc with nvcc, all sources at once, and print each
+     kernel's registers and spills (ptxas) and the dynamic shared memory
+     the wgmma kernels ask for;
   2. hold the flash-attention forward kernel against its plain PyTorch
-     version on the card, on o and lse, at the shapes listed in CHECKS;
+     version on the card, on o and lse, at the shapes listed in CHECKS
+     (D = 128 at full depth among them), on strided (B, S, 3H, D) views,
+     and with q and k scaled by SCALED_QK at the main-path shape; check
+     that two runs give the same bits;
   3. hold the backward kernels (dq; dk and dv) against their plain versions
      at the same shapes, on strided (B, S, 3H, D) views with a
-     non-contiguous do, and check that two runs give the same bits;
+     non-contiguous do, and with q and k scaled by SCALED_QK_BWD, and check
+     that two runs give the same bits; then measure, without a check, how
+     far the plain backward is from itself with f64 products at SCALED_QK;
   4. time each kernel, its plain version and PyTorch's fused attention
      (scaled_dot_product_attention: its forward, and its backward as
      forward-and-backward less forward, timed as yardsticks only) at the
-     GPT-2 main-path shape, with CUDA events;
+     GPT-2 main-path shape, by device time under torch.profiler; each
+     wrapper's time per call under CUDA events, host cost included, is
+     printed beside it;
   5. the forward path: GPT-2-124M (random weights from a seeded generator,
      bf16 compute, flash attention) scores a few (8, 1024) token batches
      through the model's forward and loss_fn, and entry() runs once at
@@ -40,6 +49,7 @@ it prints no result and exits 2.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -58,7 +68,15 @@ CHECKS = [
     (shape, dtype)
     for shape in ((1, 2, 128, 64), (1, 2, 384, 64), (2, 4, 512, 64), (1, 2, 256, 128))
     for dtype in (torch.float32, torch.bfloat16)
-] + [(MAIN_SHAPE, torch.bfloat16)]
+] + [(MAIN_SHAPE, torch.bfloat16), ((2, 4, 1024, 128), torch.bfloat16)]
+# q and k scaled by this at the main-path shape: scores of std ~16, so row
+# maxima move from kv tile to kv tile and the online rescale is exercised.
+SCALED_QK = 4.0
+# The backward's scaled check.  At SCALED_QK the plain backward does not
+# reproduce itself within BWD_TOL once its products are summed in f64: bf16
+# roundings of p and ds flip with the last bits of s (phase_tolerance_floor
+# measures it in every run).  At 2.0 (scores of std ~4) it does.
+SCALED_QK_BWD = 2.0
 # f32: the kernel and the plain version sum in another order (5e-5).
 # bf16: the kernel rounds p to bf16 before the product with v (as the Pallas
 # kernel does) and both round o to bf16 once, so o may differ by about one
@@ -160,8 +178,14 @@ def phase_device_and_build(_build):
         for line in open(f"{path}.log").read().splitlines():
             if "Compiling entry function" in line:
                 kernel = line.split("'")[1][-60:]
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error", "Performance Loss")):
                 _log("build", f"{name}: ...{kernel}: {line.strip()}")
+    for lib, sym in (("flash_attention_fwd", "flash_attention_fwd_smem_bytes"),
+                     ("flash_attention_bwd", "flash_attention_bwd_dkv_smem_bytes")):
+        fn = getattr(_build.load(lib), sym)
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
+        _log("build", f"{sym}: bf16 (wgmma) D=64 {fn(64, 1)} B, D=128 {fn(128, 1)} B; "
+                      f"f32 D=64 {fn(64, 0)} B, D=128 {fn(128, 0)} B of dynamic shared memory")
     return smi
 
 
@@ -194,6 +218,19 @@ def phase_check(fa):
     torch.testing.assert_close(lse, lse_ref, **TOL[torch.bfloat16]["lse"])
     _log("check", f"strided (B,S,3H,D) views at {MAIN_SHAPE}: max|o-ref| "
                   f"{(o.float() - o_ref.float()).abs().max().item():.3g}")
+    # No atomics: two runs give the same bits.
+    o2, lse2 = fa.flash_attention_fwd(q, k, v)
+    _require(torch.equal(o, o2) and torch.equal(lse, lse2), "two forward runs differ")
+    _log("check", "forward: two runs at the main-path shape are bitwise equal")
+    q, k, v = _qkv(MAIN_SHAPE, torch.bfloat16, seed=97)
+    q, k = q * SCALED_QK, k * SCALED_QK
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, 1.0 / math.sqrt(D))
+    torch.testing.assert_close(o.float(), o_ref.float(), **TOL[torch.bfloat16]["o"])
+    torch.testing.assert_close(lse, lse_ref, **TOL[torch.bfloat16]["lse"])
+    _log("check", f"q, k scaled by {SCALED_QK} at {MAIN_SHAPE}: max|o-ref| "
+                  f"{(o.float() - o_ref.float()).abs().max().item():.3g} max|lse-ref| "
+                  f"{(lse - lse_ref).abs().max().item():.3g}")
     return errs[(MAIN_SHAPE, torch.bfloat16)][0]
 
 
@@ -215,7 +252,8 @@ def _hold_bwd(label, got, ref, dtype):
     errs = []
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         _require(a.dtype == dtype and a.shape == b.shape, f"{label} {name}: {a.dtype} {tuple(a.shape)}")
-        torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[dtype], msg=f"{label} {name}")
+        torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[dtype],
+                                   msg=lambda m: f"{label} {name}: {m}")
         errs.append((a.float() - b.float()).abs().max().item())
     _log("check", f"{label}: max|d-ref| dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g}")
     return errs
@@ -246,35 +284,56 @@ def phase_check_bwd(fa):
     got2, _ = _bwd_pair(fa, q, k, v, do)
     _require(all(torch.equal(a, b) for a, b in zip(got, got2)), "two backward runs differ")
     _log("check", "backward: two runs at the main-path shape are bitwise equal")
+    q, k, v, do = _qkv(MAIN_SHAPE, torch.bfloat16, seed=96, n=4)
+    got, ref = _bwd_pair(fa, q * SCALED_QK_BWD, k * SCALED_QK_BWD, v, do)
+    _hold_bwd(f"q, k scaled by {SCALED_QK_BWD} at {MAIN_SHAPE}", got, ref, torch.bfloat16)
     main = errs[(MAIN_SHAPE, torch.bfloat16)]
     return {"dq": main[0], "dkv": max(main[1], main[2])}
+
+
+def _bwd_f64(q, k, v, do, lse, delta, scale):
+    """The plain backward with every product summed in f64; p and ds are
+    still rounded to the inputs' dtype before their products."""
+    S = q.shape[2]
+    w = lambda x: x.double()
+    s = torch.einsum("bhqd,bhkd->bhqk", w(q), w(k)) * scale
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    p = torch.where(causal, torch.exp(s - w(lse)[..., None]), 0.0)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", w(do), w(v)) - w(delta)[..., None]) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", w(ds.to(q.dtype)), w(k))
+    dk = torch.einsum("bhqk,bhqd->bhkd", w(ds.to(q.dtype)), w(q))
+    dv = torch.einsum("bhqk,bhqd->bhkd", w(p.to(do.dtype)), w(do))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def phase_tolerance_floor(fa):
+    """A measurement, not a check: at the main-path shape with q and k
+    scaled by SCALED_QK, how many elements of dq, dk and dv fall outside
+    BWD_TOL between the kernels, the plain backward (f32 products) and the
+    plain backward with f64 products.  Where the two plain versions
+    disagree as much as the kernels do, the tolerance is below the
+    function's own rounding noise at those inputs."""
+    q, k, v, do = _qkv(MAIN_SHAPE, torch.bfloat16, seed=96, n=4)
+    q, k = q * SCALED_QK, k * SCALED_QK
+    got, ref = _bwd_pair(fa, q, k, v, do)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    alt = _bwd_f64(q, k, v, do, lse, fa._delta(o, do), 1.0 / math.sqrt(MAIN_SHAPE[-1]))
+
+    def outside(a, b):
+        d = (a.float() - b.float()).abs()
+        tol = BWD_TOL[torch.bfloat16]
+        return int((d > tol["atol"] + tol["rtol"] * b.float().abs()).sum()), d.max().item()
+
+    for name, g, r, a in zip(("dq", "dk", "dv"), got, ref, alt):
+        _log("floor", f"q, k scaled by {SCALED_QK}, {name}: elements outside BWD_TOL (max |diff|): "
+                      "kernel vs plain %d (%.4g), f64-product plain vs plain %d (%.4g), "
+                      "kernel vs f64-product plain %d (%.4g)" % (*outside(g, r), *outside(a, r), *outside(g, a)))
 
 
 def _spread(samples):
     s = sorted(samples)
     q = lambda f: s[min(len(s) - 1, int(f * len(s)))]
     return s[len(s) // 2], q(0.25), q(0.75)
-
-
-def phase_time_kernel(fa):
-    import torch.nn.functional as F
-
-    q, k, v = _qkv(MAIN_SHAPE, torch.bfloat16, seed=7)
-    scale = 1.0 / math.sqrt(MAIN_SHAPE[-1])
-    kernel = [_time_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=20) for _ in range(5)]
-    plain_ms = _time_ms(lambda: fa.flash_attention_fwd_reference(q, k, v, scale), iters=3)
-    library = [_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), iters=50)
-               for _ in range(5)]
-    kernel_ms, k25, k75 = _spread(kernel)
-    library_ms, l25, l75 = _spread(library)
-    bound_ms, bound_by, nbytes, flops = _attention_bound(MAIN_SHAPE, torch.bfloat16)
-    _log("time", f"flash_attention_fwd {MAIN_SHAPE} bf16: kernel {kernel_ms:.4f} ms "
-                 f"(quartiles {k25:.4f}..{k75:.4f} over 5 runs of 20), plain {plain_ms:.4f} ms, "
-                 f"sdpa {library_ms:.4f} ms ({l25:.4f}..{l75:.4f}), bound {bound_ms:.4f} ms "
-                 f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
-                 f"kernel/bound {kernel_ms / bound_ms:.1f}x")
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _device_events(run):
@@ -314,6 +373,49 @@ def _sdpa_backward_ms(q, k, v, do, iters=20):
     return device_ms(fwd_bwd) - device_ms(fwd)
 
 
+def _device_ms(fn, iters, kernel=None):
+    """Device time of one ``fn()`` from the kernels of ``iters`` calls under
+    torch.profiler.  With ``kernel``, only the launches whose name holds it
+    (one a call): their median and quartiles; without, the sum of every
+    kernel over ``iters``."""
+    events = _device_events(lambda: [fn() for _ in range(iters)])
+    if kernel is None:
+        _require(events, "no device events recorded")
+        return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+    events = [e for e in events if kernel in e.name]
+    _require(len(events) == iters, f"{kernel}: {len(events)} launches profiled, expected {iters}")
+    return _spread([e.time_range.elapsed_us() / 1e3 for e in events])
+
+
+def _time_one(label, kernel, call, plain, bound, library_ms, iters=50):
+    """A kernel's device time (median and quartiles of ``iters`` launches),
+    its wrapper's time per call under CUDA events (host cost included), its
+    plain version's device time, beside its bound and the library's time."""
+    ms, q25, q75 = _device_ms(call, iters, kernel=kernel)
+    wrapper_ms = _time_ms(call, iters=iters)
+    plain_ms = _device_ms(plain, 3)
+    bound_ms, bound_by, nbytes, flops = bound
+    _log("time", f"{label} {MAIN_SHAPE} bf16: kernel {ms:.4f} ms device time (quartiles "
+                 f"{q25:.4f}..{q75:.4f} over {iters} launches), wrapper {wrapper_ms:.4f} ms a call "
+                 f"(CUDA events), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                 f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), kernel/bound {ms / bound_ms:.1f}x, "
+                 f"kernel/library {ms / library_ms:.2f}x")
+    return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_time_kernel(fa):
+    import torch.nn.functional as F
+
+    q, k, v = _qkv(MAIN_SHAPE, torch.bfloat16, seed=7)
+    scale = 1.0 / math.sqrt(MAIN_SHAPE[-1])
+    library_ms = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50)
+    _log("time", f"sdpa forward (device time) {library_ms:.4f} ms")
+    return _time_one("flash_attention_fwd", "flash_fwd", lambda: fa.flash_attention_fwd(q, k, v),
+                     lambda: fa.flash_attention_fwd_reference(q, k, v, scale),
+                     _attention_bound(MAIN_SHAPE, torch.bfloat16), library_ms)
+
+
 def phase_time_bwd(fa):
     """The dq and dk/dv kernels at the main-path shape, beside their plain
     versions, their bounds and SDPA's backward (which computes dq, dk and
@@ -329,16 +431,10 @@ def phase_time_bwd(fa):
         ("dq", fa.flash_attention_dq, fa.flash_attention_dq_reference, 3, 1),
         ("dkv", fa.flash_attention_dkv, fa.flash_attention_dkv_reference, 4, 2),
     ):
-        runs = [_time_ms(lambda: kernel(*args), iters=20) for _ in range(5)]
-        ms, q25, q75 = _spread(runs)
-        plain_ms = _time_ms(lambda: plain(*args), iters=3)
-        bound_ms, bound_by, nbytes, flops = _bwd_bound(MAIN_SHAPE, torch.bfloat16, n_products, n_outputs)
-        _log("time", f"flash_attention_{key} {MAIN_SHAPE} bf16: kernel {ms:.4f} ms (quartiles "
-                     f"{q25:.4f}..{q75:.4f} over 5 runs of 20), plain {plain_ms:.4f} ms, bound "
-                     f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
-                     f"kernel/bound {ms / bound_ms:.1f}x")
-        times[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+        times[key] = _time_one(f"flash_attention_{key}", f"flash_{key}", lambda: kernel(*args),
+                               lambda: plain(*args),
+                               _bwd_bound(MAIN_SHAPE, torch.bfloat16, n_products, n_outputs),
+                               library_ms)
     total = times["dq"]["ms"] + times["dkv"]["ms"]
     _log("time", f"sdpa backward (device time of fwd+bwd less fwd) {library_ms:.4f} ms; dq + dk/dv kernels "
                  f"{total:.4f} ms ({total / library_ms:.2f}x sdpa)")
@@ -589,6 +685,7 @@ def main() -> int:
     smi = phase_device_and_build(_build)
     fwd_err = phase_check(fa)
     bwd_err = phase_check_bwd(fa)
+    phase_tolerance_floor(fa)
     times = {"fwd": phase_time_kernel(fa), **phase_time_bwd(fa)}
 
     # The forward path (PR 1's main path).
@@ -623,6 +720,7 @@ def main() -> int:
             "launches": launches[key],
             "max_abs_err": err,
             "ms": t["ms"],
+            "wrapper_ms": t["wrapper_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],

@@ -4,48 +4,55 @@
 // ray_tpu/ops/flash_attention.py (launched by `_fwd`).  Same function:
 //   o   = softmax(q k^T * scale, causal) v        in q's dtype
 //   lse = m + log(l)                              (B, H, S) float32
-// with masked scores at -1e30, l clamped at >= 1e-30, and kv tiles above the
-// diagonal skipped.
+// with masked scores contributing 0, l clamped at >= 1e-30, and kv tiles
+// above the diagonal skipped.
 //
 // What bounds it on an H100: at the GPT-2 shape (B=8, H=12, S=1024, D=64,
-// bf16) the function must move ~51 MB (q, k, v, o once each, plus lse), which
-// is ~15 us at 3.35 TB/s, and do ~12.9 GFLOP of causal products, ~13 us at the
-// bf16 tensor-core peak: it is bytes-bound on paper, with the products close
-// behind.  What the design does about the bytes: every q, k and v element is
-// read from device memory once per tile that needs it, the (S, S) scores never
-// leave the SM, and o is written once at the end.  About the products: bf16
-// inputs go through the tensor cores (mma.sync m16n8k16, f32 accumulation);
-// wgmma, TMA and a pipelined producer warp, which the full rate needs, are
-// left for a later version.
+// bf16) the function must move ~51 MB (q, k, v, o once each, plus lse), ~15 us
+// at 3.35 TB/s, and do ~12.9 GFLOP of causal products, ~13 us at the bf16
+// tensor-core peak: bytes-bound on paper, the products close behind, so the
+// design has to keep both the memory system and the tensor cores busy at once.
 //
-// Design (not the TPU's): the TPU walks the kv grid axis in order and keeps
-// its accumulator in the output block, rounding it to q's dtype after every kv
-// block.  Here one thread block owns one (b, h, 64-row q tile) and loops over
-// the kv tiles up to the diagonal itself, keeping the online softmax (running
-// max m, running sum l) and the o accumulator in float32 registers; o rounds
-// once, when it is stored.  Blocks are scheduled heaviest q tile first, which
-// evens out the causal triangle's load across the SMs.  q, k and v are
-// addressed through (batch, head, seq) strides with a unit stride along D, so
-// the model's strided (B, S, 3H, D) projection output is read in place; o and
-// lse are contiguous.  Two kernels, chosen by dtype:
-//   - bf16: 4 warps, each owning 16 q rows.  q, k and v^T tiles are staged in
-//     shared memory (rows padded by 8 elements so fragment reads hit distinct
-//     banks); each warp keeps its q fragments in registers, computes
-//     s = q k^T with mma.sync, and reuses the s accumulators, rounded to bf16,
-//     as the A operand of p v (as the Pallas kernel rounds p to v's dtype).
-//   - float32 (the reference tests' type): the same tiling on the CUDA cores,
-//     tiles staged as float32; thread (r, c) = (tid / 16, tid % 16) owns q rows
-//     8r .. 8r+7 and columns c + 16j, and p never leaves float32.
+// Design (not the TPU's).  The TPU walks the kv grid axis in order and keeps
+// its accumulator in the output block, rounding it to q's dtype after every
+// kv block.  Here a thread block owns a (b, h, 128-row q tile) at a time and
+// walks the kv tiles up to the diagonal itself, keeping the online softmax and
+// the o accumulator in f32 registers; o rounds once, when it is stored.
+//   - bf16 (`flash_fwd_wgmma_kernel`): persistent, one block per SM, each
+//     walking its share of the q tiles, heaviest first in a snake order
+//     (hopper::snake_tile), so one tile's last products and stores overlap the
+//     next tile's loads.  Three warpgroups.  Warpgroup 0 is the producer: one
+//     thread issues TMA loads (csrc/hopper.cuh) of each q tile and of each
+//     128-row k and v tile into a ring of 3 stages, tracked by a full and an
+//     empty mbarrier per stage (and a pair for q).  Warpgroups 1 and 2 are
+//     the consumers, 64 q rows each: s = q k^T is one SS wgmma (m64n128k16)
+//     per 16 columns of D; p = exp2(s scale log2(e) - m scale log2(e)), one
+//     FMA before ex2.approx (lse goes back to natural log at the end); the
+//     causal compare runs on the diagonal tile only; o += p v is an RS wgmma
+//     with p taken straight from the s accumulators rounded to bf16 (the f32
+//     accumulator layout is the A-register layout) and v read from its
+//     row-major tile with the transpose flag.  Two overlaps, both FA3's:
+//     within a warpgroup, the softmax of kv tile j runs while p v of tile
+//     j - 1 is on the tensor cores; between the two warpgroups, named
+//     barriers make them take turns to issue their products, so one's
+//     softmax runs while the other's products run.  setmaxnreg gives the
+//     producer 40 registers and the consumers 232.  q, k and v are read
+//     through (batch, head, seq) strides by 4-D tensor maps, so the model's
+//     strided (B, S, 3H, D) views are read in place.  o and lse are
+//     contiguous and stored from registers.
+//   - float32 (the reference tests' type): one block per 64-row q tile on the
+//     CUDA cores, tiles staged as float32; thread (r, c) = (tid / 16,
+//     tid % 16) owns q rows 8r .. 8r+7 and columns c + 16j, and p never
+//     leaves float32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
+
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kBlockQ = 64;
+constexpr int kBlockQ = 64;  // float32 kernel tiles
 constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
@@ -55,197 +62,216 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: TMA ring, wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kLdv = kBlockK + 8;  // row length of the v^T tile
+template <int D>
+struct Fwd {
+  static constexpr int kRows = 128;               // q rows of a block, kv rows of a tile
+  static constexpr int kConsumers = 2;            // warpgroups of 64 q rows
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kStages = 3;  // k/v ring depth
+  static constexpr uint32_t kTileBytes = kRows * D * 2;  // one q, k or v tile
+  static constexpr uint32_t kBoxBytes = kRows * 128;     // one 64-column box of it
+  // q tile, then per stage a k tile and a v tile; 1024 of slack to align
+  static constexpr size_t kSmem = (size_t)kTileBytes * (1 + 2 * kStages) + 1024;
+};
 
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  // q and k tiles (rows of D + 8), v^T tile (D rows of kBlockK + 8)
-  return sizeof(bf16) * (size_t)((kBlockQ + kBlockK) * (D + 8) + D * kLdv);
-}
+__global__ void __launch_bounds__(Fwd<D>::kThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           bf16* __restrict__ o, float* __restrict__ lse, int B,
+                           int H, int S, float scale) {
+  using namespace hopper;
+  using C = Fwd<D>;
+  constexpr int R = C::kRows, NST = C::kStages;
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+  __shared__ __align__(8) uint64_t q_full, q_empty, kv_full[NST], kv_empty[NST];
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  const uint32_t base = (smem_addr(smem_tiles) + 1023) & ~1023u;
+  const uint32_t q_tile = base;
+  auto k_tile = [&](int st) { return base + C::kTileBytes * (1 + 2 * st); };
+  // Tile t: q tile S / R - 1 - t / (B H) of head t % (B H), heaviest first.
+  const int n_tiles = (S / R) * B * H, n_qt = S / R;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a b, one 16x8x16 tile: a row-major 16x16 bf16, b column-major 16x8.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 64 rows of D bf16 into dst[row][ld], 16 bytes per thread per step.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld,
-                                          const bf16* __restrict__ src,
-                                          int64_t row_stride) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        *reinterpret_cast<const uint4*>(src + r * row_stride + c);
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, 4 * C::kConsumers);  // one arrival a consumer warp
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(&kv_full[st], 1);
+      mbar_init(&kv_empty[st], 4 * C::kConsumers);
+    }
+    mbar_fence_init();
   }
-}
-
-// 64 rows of D bf16, stored transposed: dst[d][row], row length kLdv.
-template <int D>
-__device__ __forceinline__ void load_rows_transposed(
-    bf16* dst, const bf16* __restrict__ src, int64_t row_stride) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    uint4 v = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c + i) * kLdv + r] = e[i];
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                         float* __restrict__ lse, int H, int S, Strides qs,
-                         Strides ks, Strides vs, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KD = D / 16;       // k-steps of q k^T
-  constexpr int NS = kBlockK / 8;  // 8-column blocks of s
-  constexpr int NO = D / 8;        // 8-column blocks of o
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kBlockQ * LD;
-  bf16* Vt = Ks + kBlockK * LD;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kBlockQ;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;  // mma fragment row group, column pair
-  const int r0 = (threadIdx.x / 32) * 16 + g;  // this thread's rows: r0, r0 + 8
-
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-
-  load_rows<D>(Qs, LD, q + b * qs.b + h * qs.h + q0 * qs.s, qs.s);
   __syncthreads();
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-    const bf16* p = Qs + r0 * LD + kd * 16 + t4 * 2;
-    qf[kd][0] = ld32(p);
-    qf[kd][1] = ld32(p + 8 * LD);
-    qf[kd][2] = ld32(p + 8);
-    qf[kd][3] = ld32(p + 8 * LD + 8);
-  }
 
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  const int last_kt = (q0 + kBlockQ - 1) / kBlockK;  // causal: tiles 0..last
-  for (int kt = 0; kt <= last_kt; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile's readers of Ks and Vt are done
-    load_rows<D>(Ks, LD, kb + k0 * ks.s, ks.s);
-    load_rows_transposed<D>(Vt, vb + k0 * vs.s, vs.s);
-    __syncthreads();
-
-    // s = q k^T: element e of block n is (row r0 + 8 (e / 2),
-    // column n * 8 + t4 * 2 + e % 2).
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        const bf16* p = Ks + (n * 8 + g) * LD + kd * 16 + t4 * 2;
-        mma_bf16(s[n], qf[kd], ld32(p), ld32(p + 8));
+  if (threadIdx.x < 128) {  // producer warpgroup
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&qmap);
+      tma_prefetch(&kmap);
+      tma_prefetch(&vmap);
+      int it = 0;  // kv tiles loaded so far: ring stage it % NST
+      for (int r = 0, t; (t = snake_tile(r, n_tiles)) >= 0; ++r) {
+        const int qt = n_qt - 1 - t / (B * H), bh = t % (B * H), b = bh / H, h = bh % H;
+        mbar_wait(&q_empty, (r & 1) ^ 1);
+        mbar_arrive_expect_tx(&q_full, C::kTileBytes);
+        tma_load_rows<D>(q_tile, &qmap, &q_full, R, qt * R, h, b);
+        for (int kt = 0; kt <= qt; ++kt, ++it) {
+          const int st = it % NST;
+          mbar_wait(&kv_empty[st], ((it / NST) & 1) ^ 1);
+          mbar_arrive_expect_tx(&kv_full[st], 2 * C::kTileBytes);
+          tma_load_rows<D>(k_tile(st), &kmap, &kv_full[st], R, kt * R, h, b);
+          tma_load_rows<D>(k_tile(st) + C::kTileBytes, &vmap, &kv_full[st], R, kt * R, h, b);
+        }
       }
     }
+    return;
+  }
 
-    float mx[2] = {kNegInf, kNegInf};
+  regs_inc<232>();
+  const int c = threadIdx.x / 128 - 1;  // consumer warpgroup: q rows 64c ..
+  const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = 64 * c + 16 * w + g;  // this thread's rows of a tile: r0, r0 + 8
+  const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
+  const uint32_t q_rows = q_tile + 64 * c * 128;  // this warpgroup's q rows
+
+  float acc[D / 2];
+  float m[2], l[2], corr[2];
+  // s = q k^T of one kv tile: element (row g or g + 8, column 8 j + 2 t4 +
+  // {0, 1}) of this warp's 16 rows is s[4 j + {0, 1}] or s[4 j + {2, 3}].
+  float s[R / 2];
+  uint32_t pa[R / 16][4];  // the previous tile's p, as A fragments
+
+  auto issue_s = [&](int it) {  // s = q k^T of the kv tile in stage it % NST
+    const uint32_t kk_tile = k_tile(it % NST);
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<R, 0>(s, desc_k_major(q_rows, C::kBoxBytes, kk),
+                     desc_k_major(kk_tile, C::kBoxBytes, kk), kk > 0);
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int it) {  // o += p v of the kv tile in stage it % NST
+    const uint32_t v_tile = k_tile(it % NST) + C::kTileBytes;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q_pos = q0 + r0 + 8 * (e / 2);
-        const int k_pos = k0 + n * 8 + t4 * 2 + e % 2;
-        s[n][e] = q_pos >= k_pos ? s[n][e] * scale : kNegInf;
-        mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
-      }
-    float corr[2], sum[2] = {0.f, 0.f};
+    for (int j = 0; j < R / 16; ++j)
+      wgmma_rs<D, 1>(acc, pa[j], desc_mn_major(v_tile, C::kBoxBytes, j), 1);
+    wgmma_commit();
+  };
+  // The online softmax of s in place: p = exp2(s sl2 - m sl2), with the
+  // causal compare on the diagonal tile only; sets corr, the factor that
+  // rescales o and l to the new row maxima.
+  auto softmax = [&](bool diagonal) {
+    if (diagonal) {
+#pragma unroll
+      for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + 2 * t4 + (e & 1) > r0 + 8 * (e >> 1)) s[4 * j + e] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, neg[2];
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
       const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = expf(m[i] - m_new);
+      corr[i] = exp2_ftz((m[i] - m_new) * sl2);
+      neg[i] = -m_new * sl2;
       m[i] = m_new;
+      l[i] *= corr[i];
     }
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int j = 0; j < R / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e / 2]);
-        sum[e / 2] += s[n][e];
+        s[4 * j + e] = exp2_ftz(fmaf(s[4 * j + e], sl2, neg[e >> 1]));
+        l[e >> 1] += s[4 * j + e];
       }
+  };
+  auto arrive = [&](uint64_t* bar) {  // this warp is done with what bar guards
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // Ping-pong (FA3): the two warpgroups take turns to issue their products,
+  // so one's softmax runs while the other's products hold the tensor cores.
+  // Each takes the same number of turns, so the turns stay paired.
+  auto turn_take = [&] { named_sync(1 + c, 256); };
+  auto turn_give = [&] { named_arrive(2 - c, 256); };
+  if (c == 1) named_arrive(1, 256);  // warpgroup 0 goes first
+
+  int it = 0;  // kv tiles consumed so far: ring stage it % NST
+  for (int r = 0, t; (t = snake_tile(r, n_tiles)) >= 0; ++r) {
+    const int qt = n_qt - 1 - t / (B * H), n_kt = qt + 1;  // kv tiles 0 .. qt, qt diagonal
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) m[i] = -INFINITY, l[i] = 0.f;
+
+    // Software pipeline (FA3's intra-warpgroup overlap): while o += p v of
+    // kv tile kt - 1 runs on the tensor cores, the softmax of tile kt runs on
+    // the CUDA cores; p of tile kt - 1 waits in pa as bf16 A fragments.
+    mbar_wait(&q_full, r & 1);
+    mbar_wait(&kv_full[it % NST], (it / NST) & 1);
+    turn_take();
+    wgmma_fence();
+    issue_s(it);
+    turn_give();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (n_kt == 1) arrive(&q_empty);
+    softmax(n_kt == 1);
+    acc_to_a<R>(pa, s);
+    for (int kt = 1; kt < n_kt; ++kt, ++it) {
+      mbar_wait(&kv_full[(it + 1) % NST], ((it + 1) / NST) & 1);
+      turn_take();
+      wgmma_fence();
+      issue_s(it + 1);
+      issue_pv(it);
+      turn_give();
+      wgmma_wait<1>();  // s of tile kt has landed; p v of tile kt - 1 may run on
+      fence_regs(s);
+      if (kt == n_kt - 1) arrive(&q_empty);  // q is read by no later product
+      softmax(kt == n_kt - 1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      arrive(&kv_empty[it % NST]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * j + e] *= corr[e >> 1];
+      acc_to_a<R>(pa, s);
+    }
+    turn_take();
+    wgmma_fence();
+    issue_pv(it);
+    turn_give();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+    arrive(&kv_empty[it % NST]);
+    ++it;
+
+    const int64_t row0 = (int64_t)(t % (B * H)) * S + qt * R + r0;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      l[i] = l[i] * corr[i] + sum[i];
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const float lc = fmaxf(l[i], 1e-30f), inv = 1.f / lc;
+      bf16* orow = o + (row0 + 8 * i) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+      if (t4 == 0) lse[row0 + 8 * i] = m[i] * scale + logf(lc);
     }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-    // o += p v: the s accumulators of blocks 2j and 2j + 1 are, element for
-    // element, the A fragment of k-step j.
-#pragma unroll
-    for (int j = 0; j < kBlockK / 16; ++j) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * j][0], s[2 * j][1]), pack_bf16(s[2 * j][2], s[2 * j][3]),
-          pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-          pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const bf16* p = Vt + (n * 8 + g) * kLdv + j * 16 + t4 * 2;
-        mma_bf16(acc[n], a, ld32(p), ld32(p + 8));
-      }
-    }
-  }
-
-  const int64_t bh = (int64_t)b * H + h;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int q_pos = q0 + r0 + 8 * i;
-    const float lc = fmaxf(l[i], 1e-30f);
-    bf16* orow = o + (bh * S + q_pos) * D + t4 * 2;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(acc[n][2 * i] / lc, acc[n][2 * i + 1] / lc);
-    if (t4 == 0) lse[bh * S + q_pos] = m[i] + logf(lc);
   }
 }
 
@@ -401,28 +427,56 @@ __global__ void __launch_bounds__(kThreads)
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const void* q, const void* k,
-                   const void* v, void* o, float* lse, int B, int H, int S,
-                   Strides qs, Strides ks, Strides vs, float scale,
-                   cudaStream_t stream) {
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         float* lse, int B, int H, int S, Strides qs, Strides ks,
+                         Strides vs, float scale, cudaStream_t stream) {
+  using C = Fwd<D>;
+  if (S % C::kRows != 0) return cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  int err = hopper::make_map(&qm, q, B, H, S, D, qs.b, qs.h, qs.s, C::kRows);
+  if (!err) err = hopper::make_map(&km, k, B, H, S, D, ks.b, ks.h, ks.s, C::kRows);
+  if (!err) err = hopper::make_map(&vm, v, B, H, S, D, vs.b, vs.h, vs.s, C::kRows);
+  if (err) return static_cast<cudaError_t>(err);
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+  if (e != cudaSuccess) return e;
+  int device, sms;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return e;
+  const int n_tiles = B * H * (S / C::kRows);
+  // One block per SM (at most), each walking its share of the tiles.
+  kernel<<<n_tiles < sms ? n_tiles : sms, C::kThreads, C::kSmem, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), lse, B, H, S, scale);
+  return cudaGetLastError();
+}
+
+template <typename Kernel>
+cudaError_t launch_f32(Kernel kernel, size_t smem, const void* q, const void* k,
+                       const void* v, void* o, float* lse, int B, int H, int S,
+                       Strides qs, Strides ks, Strides vs, float scale,
+                       cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(S / kBlockQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, S, qs, ks, vs,
-      scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, S, qs, ks,
+      vs, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; D's is 1.  The
-// bf16 kernel reads rows 16 bytes at a time: pointers 16-byte aligned and
-// strides multiples of 8.  Returns a cudaError_t (0 on success).  Launches on
-// `stream`, does not synchronise and allocates nothing.
+// bf16 kernel reads q, k and v through TMA: pointers 16-byte aligned, strides
+// multiples of 8, and S a multiple of 128.  Returns a cudaError_t (0 on
+// success), or hopper::kTensorMapError + a CUresult when the driver refuses a
+// tensor map.  Launches on `stream`, does not synchronise and allocates
+// nothing.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int H, int S,
                                    int D, int64_t q_sb, int64_t q_sh,
@@ -435,16 +489,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 64)
-    return launch<bf16>(flash_fwd_mma_kernel<64>, mma_smem_bytes<64>(), q, k, v,
-                        o, l, B, H, S, qs, ks, vs, scale, st);
+    return launch_wgmma<64>(q, k, v, o, l, B, H, S, qs, ks, vs, scale, st);
   if (dtype == 1 && D == 128)
-    return launch<bf16>(flash_fwd_mma_kernel<128>, mma_smem_bytes<128>(), q, k,
-                        v, o, l, B, H, S, qs, ks, vs, scale, st);
+    return launch_wgmma<128>(q, k, v, o, l, B, H, S, qs, ks, vs, scale, st);
   if (dtype == 0 && D == 64)
-    return launch<float>(flash_fwd_f32_kernel<64>, f32_smem_bytes<64>(), q, k,
-                         v, o, l, B, H, S, qs, ks, vs, scale, st);
+    return launch_f32(flash_fwd_f32_kernel<64>, f32_smem_bytes<64>(), q, k, v,
+                      o, l, B, H, S, qs, ks, vs, scale, st);
   if (dtype == 0 && D == 128)
-    return launch<float>(flash_fwd_f32_kernel<128>, f32_smem_bytes<128>(), q,
-                         k, v, o, l, B, H, S, qs, ks, vs, scale, st);
+    return launch_f32(flash_fwd_f32_kernel<128>, f32_smem_bytes<128>(), q, k,
+                      v, o, l, B, H, S, qs, ks, vs, scale, st);
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory a launch of the kernel for (D, dtype) asks for.
+extern "C" int flash_attention_fwd_smem_bytes(int D, int dtype) {
+  if (dtype == 1) return D == 64 ? (int)Fwd<64>::kSmem : (int)Fwd<128>::kSmem;
+  return D == 64 ? (int)f32_smem_bytes<64>() : (int)f32_smem_bytes<128>();
 }

@@ -3,8 +3,9 @@
 Every ``csrc/<name>.cu`` is compiled on first use into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 under ``ray_tpu_torch/_build/``.  The library's file name carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded.  Nothing is compiled when the package is imported.
+the source, of every header in ``csrc/`` (``hopper.cuh``) and of the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded.  Nothing is compiled when the package is imported.
 """
 
 from __future__ import annotations
@@ -41,10 +42,12 @@ def _nvcc() -> str:
     )
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, Path]:

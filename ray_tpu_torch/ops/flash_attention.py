@@ -2,7 +2,9 @@
 versions, forward and backward.
 
 Port of ``ray_tpu/ops/flash_attention.py``.  Three kernels replace the three
-Pallas kernels there; each one's design note is in its source:
+Pallas kernels there; each one's design note is in its source, and the
+forward and dk/dv kernels share the Hopper primitives of ``csrc/hopper.cuh``
+(TMA, mbarriers, wgmma):
 
 - ``csrc/flash_attention_fwd.cu`` replaces ``_fwd_kernel``: o and the per-row
   log-sum-exp ``lse``, which the backward kernels and ring attention read;
@@ -22,7 +24,9 @@ launches its kernel or raises.  There is no fallback between the two.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import math
 
 import torch
@@ -133,8 +137,9 @@ def _check(q, k, v):
 
 def _check_kernel_inputs(*ts):
     """What the kernels take: f32 or bf16, D = 64 or 128, (batch, head, seq)
-    strides that are non-negative, and for bf16 rows read 16 bytes at a
-    time."""
+    strides that are non-negative, and for bf16 rows that TMA (forward,
+    dk/dv) and 16-byte loads (dq) can read: 16-byte aligned data and byte
+    strides that are multiples of 16."""
     B, H, S, D = ts[0].shape
     if ts[0].dtype not in _DTYPE_CODES:
         raise ValueError(f"flash attention kernels take float32 or bfloat16, got {ts[0].dtype}")
@@ -144,8 +149,8 @@ def _check_kernel_inputs(*ts):
         raise ValueError("flash attention kernels need non-negative strides")
     if ts[0].dtype == torch.bfloat16 and not all(_rows_aligned(t) for t in ts):
         raise ValueError(
-            "the bf16 kernels read rows 16 bytes at a time: inputs need "
-            "16-byte aligned data and strides that are multiples of 8"
+            "the bf16 kernels read rows through TMA and 16 bytes at a time: "
+            "inputs need 16-byte aligned data and strides that are multiples of 8"
         )
 
 
@@ -153,10 +158,11 @@ def _rows_aligned(t) -> bool:
     return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
 
 
+@functools.lru_cache(maxsize=None)
 def _fn(lib_name: str, sym: str, n_ptrs: int, n_strided: int):
-    """The C function ``sym`` of ``csrc/<lib_name>.cu``, typed: ``n_ptrs``
-    pointers, B, H, S, D, the (batch, head, seq) strides of ``n_strided``
-    tensors, scale, dtype code and stream."""
+    """The C function ``sym`` of ``csrc/<lib_name>.cu``, typed once and
+    cached: ``n_ptrs`` pointers, B, H, S, D, the (batch, head, seq) strides
+    of ``n_strided`` tensors, scale, dtype code and stream."""
     fn = getattr(_build.load(lib_name), sym)
     fn.restype = ctypes.c_int
     fn.argtypes = (
@@ -167,14 +173,25 @@ def _fn(lib_name: str, sym: str, n_ptrs: int, n_strided: int):
     return fn
 
 
+# What the C functions return when the driver refuses a TMA tensor map:
+# this plus the CUresult (csrc/hopper.cuh kTensorMapError).
+_TENSOR_MAP_ERROR = 10000
+
+
 def _call(fn, name, ptrs, strided, scale):
     """Launch ``fn`` on the current stream of the inputs' device."""
     t = strided[0]
     B, H, S, D = t.shape
     strides = [st for x in strided for st in x.stride()[:3]]
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
+    # Switching devices costs a context manager a call; skip it when the
+    # inputs' device is the current one.
+    same = t.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if same else torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream().cuda_stream
         err = fn(*ptrs, B, H, S, D, *strides, float(scale), _DTYPE_CODES[t.dtype], stream)
+    if err >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{name}: the driver refused a TMA tensor map: "
+                           f"CUresult {err - _TENSOR_MAP_ERROR}")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 

@@ -52,3 +52,21 @@ def test_model_constructors_default_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gpt2.init(gpt2.GPTConfig.tiny())
     assert gpt2.init(gpt2.GPTConfig.tiny(), device="cpu").wte.device.type == "cpu"
+
+
+def test_library_path_hashes_headers(tmp_path):
+    """An edited csrc header gives the library another name, so a source
+    that includes it is rebuilt instead of a stale library being loaded."""
+    import shutil
+
+    from ray_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    assert sorted(csrc.glob("*.cuh")), "csrc/ has no header to edit"
+    before = {n: _build.library_path(n, csrc) for n in _build.all_sources()}
+    assert before == {n: _build.library_path(n) for n in before}
+    header = sorted(csrc.glob("*.cuh"))[0]
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n, csrc) for n in before}
+    assert all(after[n] != before[n] for n in before)
