@@ -53,6 +53,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -68,7 +69,10 @@ CHECKS = [
     (shape, dtype)
     for shape in ((1, 2, 128, 64), (1, 2, 384, 64), (2, 4, 512, 64), (1, 2, 256, 128))
     for dtype in (torch.float32, torch.bfloat16)
-] + [(MAIN_SHAPE, torch.bfloat16), ((2, 4, 1024, 128), torch.bfloat16)]
+] + [(MAIN_SHAPE, torch.bfloat16), ((2, 4, 1024, 128), torch.bfloat16),
+       # D = 128 with more tiles than the card has SMs, so every persistent
+       # wgmma kernel's blocks take a second tile there too.
+       ((8, 12, 1024, 128), torch.bfloat16)]
 # q and k scaled by this at the main-path shape: scores of std ~16, so row
 # maxima move from kv tile to kv tile and the online rescale is exercised.
 SCALED_QK = 4.0
@@ -177,10 +181,13 @@ def phase_device_and_build(_build):
         kernel = ""
         for line in open(f"{path}.log").read().splitlines():
             if "Compiling entry function" in line:
-                kernel = line.split("'")[1][-60:]
+                mangled = line.split("'")[1]
+                m = re.search(r"\d(flash_[a-z0-9_]*_kernel)ILi(\d+)E", mangled)
+                kernel = f"{m[1]}<{m[2]}>" if m else mangled[-60:]
             if any(w in line for w in ("registers", "spill", "error", "Performance Loss")):
-                _log("build", f"{name}: ...{kernel}: {line.strip()}")
+                _log("build", f"{name}: {kernel}: {line.strip()}")
     for lib, sym in (("flash_attention_fwd", "flash_attention_fwd_smem_bytes"),
+                     ("flash_attention_bwd", "flash_attention_bwd_dq_smem_bytes"),
                      ("flash_attention_bwd", "flash_attention_bwd_dkv_smem_bytes")):
         fn = getattr(_build.load(lib), sym)
         fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
@@ -411,7 +418,7 @@ def phase_time_kernel(fa):
     scale = 1.0 / math.sqrt(MAIN_SHAPE[-1])
     library_ms = _device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50)
     _log("time", f"sdpa forward (device time) {library_ms:.4f} ms")
-    return _time_one("flash_attention_fwd", "flash_fwd", lambda: fa.flash_attention_fwd(q, k, v),
+    return _time_one("flash_attention_fwd", "flash_fwd_wgmma_kernel", lambda: fa.flash_attention_fwd(q, k, v),
                      lambda: fa.flash_attention_fwd_reference(q, k, v, scale),
                      _attention_bound(MAIN_SHAPE, torch.bfloat16), library_ms)
 
@@ -431,7 +438,7 @@ def phase_time_bwd(fa):
         ("dq", fa.flash_attention_dq, fa.flash_attention_dq_reference, 3, 1),
         ("dkv", fa.flash_attention_dkv, fa.flash_attention_dkv_reference, 4, 2),
     ):
-        times[key] = _time_one(f"flash_attention_{key}", f"flash_{key}", lambda: kernel(*args),
+        times[key] = _time_one(f"flash_attention_{key}", f"flash_{key}_wgmma_kernel", lambda: kernel(*args),
                                lambda: plain(*args),
                                _bwd_bound(MAIN_SHAPE, torch.bfloat16, n_products, n_outputs),
                                library_ms)
@@ -530,14 +537,18 @@ def _group(name):
     return "gemm" if any(m in name.lower() for m in GEMM_MARKERS) else "other"
 
 
-def phase_profile(run, label, unprofiled_ms, top=6):
+def phase_profile(run, label, unprofiled_ms, top=6, expect=None):
     """Device time by kernel group over one ``run()`` (torch.profiler).  The
     profiler slows the host, so the device's idle share is taken against the
-    unprofiled time as well as the profiled window."""
+    unprofiled time as well as the profiled window.  ``expect`` maps a kernel
+    name to the launches of it the run must show."""
     kernels = _device_events(run)
     if not kernels:
         _log("profile", f"{label}: no device events recorded: not measured")
         return
+    for name, n in (expect or {}).items():
+        got = sum(name in e.name for e in kernels)
+        _require(got == n, f"{label}: {got} launches of {name} profiled, expected {n}")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s_, e_ in spans[1:]:
@@ -707,7 +718,9 @@ def main() -> int:
     phase_grad_flash_vs_dense(gpt2, model, tokens[1])
     launches, step, state, train = phase_train(fa, gpt2, spmd, model, tokens[0])
     head = phase_time_head_backward(model, tokens.shape[1] * (tokens.shape[2] - 1))
-    phase_profile(lambda: step(state, {"tokens": tokens[0]}), "one train step", train["step_ms"], top=10)
+    # The step's bf16 kernels are the wgmma ones, one launch a layer each.
+    phase_profile(lambda: step(state, {"tokens": tokens[0]}), "one train step", train["step_ms"], top=10,
+                  expect={f"flash_{k}_wgmma_kernel": cfg.num_layers for k in ("fwd", "dq", "dkv")})
     _log("done", f"{time.perf_counter() - t_start:.1f} s in all")
 
     def entry_of(key, name, line, err):

@@ -14,11 +14,12 @@
 // ds to q's/k's dtype before ds k and ds^T q; every sum is f32.
 //
 // What bounds them on an H100: at the GPT-2 shape (B=8, H=12, S=1024, D=64,
-// bf16) the dq pass does 3 causal products (~19.3 GFLOP, ~20 us at the bf16
-// tensor-core peak) and moves ~64 MB (~19 us at 3.35 TB/s); the dk/dv pass
-// does 4 products (~25.8 GFLOP, ~26 us) and moves ~76 MB (~23 us): both are
-// bound by operations on paper, with the bytes close behind.  The recomputed
-// p and ds never leave the registers, and each output is written once.
+// bf16) the dq pass does 3 causal products (~19.35 GFLOP, ~19.6 us at the
+// bf16 tensor-core peak) and moves ~64 MB (~19 us at 3.35 TB/s); the dk/dv
+// pass does 4 products (~25.8 GFLOP, ~26 us) and moves ~76 MB (~23 us): both
+// are bound by operations on paper, with the bytes close behind.  The
+// recomputed p and ds never leave the registers, and each output is written
+// once.
 //
 // Design (not the TPU's): the TPU walks one grid axis in order and adds each
 // block's contribution into an output held in the inputs' dtype, so bf16
@@ -26,35 +27,48 @@
 // other axis itself, keeping the sums in f32 registers and rounding once at
 // the store; blocks run in any order, and with no atomics two runs give the
 // same bits.  The split into a dq pass and a dk/dv pass is the reference's.
-//   - dk/dv, bf16 (`flash_dkv_wgmma_kernel`): persistent, one block per SM,
-//     each walking its share of the (b, h, 128-row kv tile)s, heaviest (kv
-//     tile 0) first in a snake order.  Three warpgroups.  Warpgroup 0 is the
-//     producer: one thread loads each kv tile's k and v once by TMA
-//     (csrc/hopper.cuh), then streams the q and do tiles (64 rows at D = 64,
-//     32 at D = 128) with their lse and delta rows, from the diagonal to the
-//     end, through a ring of 3 stages tracked by full and empty mbarriers;
-//     the next kv tile's k and v load as soon as the last q tile's scores
-//     are done.  Warpgroups 1 and 2 own 64 kv rows each: s^T = k q^T and
+// Both bf16 kernels share one shape (csrc/hopper.cuh: TMA, mbarriers, wgmma):
+// persistent, one 384-thread block per SM walking its share of the output
+// tiles, heaviest first in a snake order.  Warpgroup 0 is the producer: one
+// thread loads the output tile's own operands once by TMA, with their own
+// full/empty mbarrier pair, then streams the other axis's tiles through a
+// ring of stages tracked by full and empty mbarriers; setmaxnreg moves its
+// registers to the two consumer warpgroups.  p = exp2(s scale log2(e) - lse
+// log2(e)), one FMA before ex2.approx; the causal compare runs only on the
+// tiles that reach a warpgroup's diagonal, and tiles wholly beyond it are
+// skipped.  The two consumers take turns (named barriers) to issue their
+// products, so one's exp2 and ds run while the other's products run (FA3's
+// ping-pong); a consumer that skips a tile still takes and gives its turns.
+//   - dk/dv (`flash_dkv_wgmma_kernel`): 128-row kv tiles, heaviest is kv tile
+//     0.  Each kv tile's k and v load once; the q and do tiles (64 rows at
+//     D = 64, 32 at D = 128) with their lse and delta rows stream from the
+//     diagonal to the end, 3 stages deep; 40 registers for the producer, 232
+//     for the consumers.  Consumers own 64 kv rows each: s^T = k q^T and
 //     dp^T = v do^T are SS wgmmas with q and do as K-major B operands, so
 //     p^T and ds^T come out of the accumulators in the A-register layout and
 //     feed dv += p^T do and dk += ds^T q, rounded to bf16, as RS wgmmas that
 //     read do and q from their row-major tiles with the transpose flag.
-//     p = exp2(s scale log2(e) - lse log2(e)), one FMA before ex2.approx; the
-//     causal compare runs only on the q tiles that reach below a
-//     warpgroup's diagonal, and tiles wholly above it are skipped.  The two
-//     warpgroups take turns (named barriers) to issue their products, so
-//     one's exp2 and ds run while the other's products run (FA3's
-//     ping-pong).  dk and dv stay in f32 registers; setmaxnreg gives the
-//     producer 40 registers and the consumers 232.
-//   - dq, bf16 (`flash_dq_mma_kernel`): one block per (b, h, 64-row q tile),
-//     heaviest tile first, looping over kv tiles up to the diagonal on
-//     mma.sync m16n8k16 with one tile in flight; kT as the B operand of ds k
-//     is read with ldmatrix.trans from the row-major k tile.  Its Hopper
-//     redesign is the next step.
+//   - dq (`flash_dq_wgmma_kernel`): 128-row q tiles, heaviest is the last q
+//     tile.  Each q tile's q and do load once, with its lse and delta rows
+//     (which the consumers keep in registers), into one of two buffers at
+//     D = 64 (one at D = 128, where shared memory has no room for two), so
+//     the next q tile loads while the last one's final products run; the k
+//     and v tiles (128 rows at D = 64, 64 at D = 128) stream from kv tile 0
+//     to the diagonal, 4 stages deep.  24 registers for the producer, 240
+//     for the consumers: at 232 ptxas spilled at D = 64.
+//     Consumers own 64 q rows each: s = q k^T and dp = do v^T are SS wgmmas
+//     with k and v as K-major B operands; ds comes out of the accumulators in
+//     the A-register layout and feeds dq += ds k, rounded to bf16, as an RS
+//     wgmma that reads the same k tile MN-major (transpose flag), so a ring
+//     stage is released only once that product has retired.  Within a
+//     consumer, ds of kv tile j is computed while ds k of tile j - 1 runs
+//     (FA3's intra-warpgroup overlap), its A fragments waiting in registers.
+//     At D = 64 the diagonal kv tile is computed whole by both consumers:
+//     the products do ~12% more than the causal triangle needs.
 // q, k, v and do are addressed through (batch, head, seq) strides with a unit
-// stride along D (through 4-D tensor maps in the wgmma kernel); lse, delta and
-// the outputs are contiguous.  float32 (the reference tests' type) runs the
-// same tilings on the CUDA cores (64-row tiles; the dk/dv pass takes 32-row q
+// stride along D (through 4-D tensor maps in the wgmma kernels); lse, delta
+// and the outputs are contiguous.  float32 (the reference tests' type) runs
+// one block per 64-row tile on the CUDA cores (the dk/dv pass takes 32-row q
 // tiles at D = 128), with p and ds staged in shared memory and never rounded.
 
 #include "hopper.cuh"
@@ -63,7 +77,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kBlock = 64;  // q rows of a dq block, kv rows of an f32 dk/dv block
+constexpr int kBlock = 64;  // tile rows of the f32 kernels (q for dq, kv for dk/dv)
 constexpr int kThreads = 128;
 
 struct Strides {
@@ -77,181 +91,241 @@ __host__ __device__ constexpr int dkv_block_q() {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dq: mma.sync
+// bf16 dq: TMA ring, wgmma
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-using hopper::pack_bf16;
-
-// d += a b, one 16x8x16 tile: a row-major 16x16 bf16, b column-major 16x8.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment (16 x 16) whose thread-owned element pair starts at
-// tile[row][col] (row = 16-row base + g, col = 16-column base + 2 t4).
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* tile,
-                                       int ld, int row, int col) {
-  const bf16* p = tile + row * ld + col;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragments of d += a B for B = tile[k0 .. k0+15][n0 .. n0+15], a
-// row-major [k][n] tile in shared memory: (r[0], r[1]) for columns n0..n0+7,
-// (r[2], r[3]) for n0+8..n0+15.  ldmatrix.trans hands each thread the
-// column pairs an mma B operand wants.
-__device__ __forceinline__ void b_frags_trans(uint32_t (&r)[4],
-                                              const bf16* tile, int ld, int k0,
-                                              int n0) {
-  const int lane = threadIdx.x % 32;
-  const bf16* p =
-      tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// ROWS rows of D bf16 into dst[row][ld], 16 bytes per thread per step.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld,
-                                          const bf16* __restrict__ src,
-                                          int64_t row_stride) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-  }
-}
+template <int D>
+struct Dq {
+  static constexpr int kRowsQ = 128;                // q rows of a block
+  static constexpr int kConsumers = 2;              // warpgroups of 64 q rows
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kRowsK = D == 64 ? 128 : 64;  // kv rows of a ring stage
+  static constexpr int kStages = 4;
+  // q tiles in flight: two where shared memory has room for them, so the
+  // next q tile loads while the last one's final products run.
+  static constexpr int kQBufs = D == 64 ? 2 : 1;
+  static constexpr uint32_t kQBytes = kRowsQ * D * 2;  // the q or the do tile
+  static constexpr uint32_t kKBytes = kRowsK * D * 2;  // a k or a v tile
+  static constexpr uint32_t kRowBytes = kRowsQ * 4;    // lse or delta of the q tile
+  // bytes that land with a q tile
+  static constexpr uint32_t kQTx = 2 * kQBytes + 2 * kRowBytes;
+  // per q buffer q, do; then per stage k, v; then per q buffer lse, delta;
+  // 1024 to align
+  static constexpr size_t kSmem = kQBufs * (2 * (size_t)kQBytes + 2 * kRowBytes) +
+                                  kStages * 2 * (size_t)kKBytes + 1024;
+};
 
 template <int D>
-constexpr size_t dq_mma_smem_bytes() {
-  // q, do, k, v tiles, rows of D + 8 (so fragment reads hit distinct banks)
-  return sizeof(bf16) * (size_t)(4 * kBlock * (D + 8));
-}
+__global__ void __launch_bounds__(Dq<D>::kThreads, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap domap,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int B, int H, int S, float scale) {
+  using namespace hopper;
+  using C = Dq<D>;
+  constexpr int RQ = C::kRowsQ, RK = C::kRowsK, NST = C::kStages, NQB = C::kQBufs;
+  constexpr uint32_t kBoxQ = RQ * 128, kBoxK = RK * 128;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, bf16* __restrict__ dq,
-                        int H, int S, Strides qs, Strides ks, Strides vs,
-                        Strides dos, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int KD = D / 16;      // k-steps of q k^T and do v^T
-  constexpr int NS = kBlock / 8;  // 8-column blocks of s (kv)
-  constexpr int ND = D / 8;       // 8-column blocks of dq
+  __shared__ __align__(8) uint64_t q_full[NQB], q_empty[NQB], kv_full[NST], kv_empty[NST];
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  const uint32_t base = (smem_addr(smem_tiles) + 1023) & ~1023u;
+  unsigned char* const sbase = smem_tiles + (base - smem_addr(smem_tiles));
+  // q buffer qb holds the q tile (do follows it) of q tiles r with r % NQB == qb
+  auto q_tile = [&](int qb) { return base + 2 * C::kQBytes * qb; };
+  auto k_tile = [&](int st) { return base + 2 * C::kQBytes * NQB + 2 * C::kKBytes * st; };
+  auto lse_at = [&](int qb) {  // lse of q buffer qb; delta follows it
+    return reinterpret_cast<const float*>(sbase + 2 * C::kQBytes * NQB + 2 * C::kKBytes * NST +
+                                          2 * C::kRowBytes * qb);
+  };
+  // Tile t: q tile S / RQ - 1 - t / (B H) of head t % (B H), heaviest (most
+  // kv tiles) first.
+  const int n_tiles = (S / RQ) * B * H, n_qt = S / RQ;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kBlock * LD;
-  bf16* Ks = dOs + kBlock * LD;
-  bf16* Vs = Ks + kBlock * LD;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kBlock;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;  // mma fragment row group, column pair
-  const int r0 = (threadIdx.x / 32) * 16 + g;  // this thread's rows: r0, r0 + 8
-  const int64_t bh = (int64_t)b * H + h;
-
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  load_rows<D, kBlock>(Qs, LD, q + b * qs.b + h * qs.h + q0 * qs.s, qs.s);
-  load_rows<D, kBlock>(dOs, LD, dO + b * dos.b + h * dos.h + q0 * dos.s, dos.s);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse_r[i] = lse[bh * S + q0 + r0 + 8 * i];
-    delta_r[i] = delta[bh * S + q0 + r0 + 8 * i];
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < NQB; ++qb) {
+      mbar_init(&q_full[qb], 1);
+      mbar_init(&q_empty[qb], 4 * C::kConsumers);  // one arrival a consumer warp
+    }
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(&kv_full[st], 1);
+      mbar_init(&kv_empty[st], 4 * C::kConsumers);
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {  // causal: kv tiles up to the diagonal
-    const int k0 = kt * kBlock;
-    __syncthreads();  // the previous tile's readers of Ks and Vs are done
-    load_rows<D, kBlock>(Ks, LD, kb + k0 * ks.s, ks.s);
-    load_rows<D, kBlock>(Vs, LD, vb + k0 * vs.s, vs.s);
-    __syncthreads();
-
-    // s = q k^T and dp = do v^T: element e of block n is (row r0 + 8 (e / 2),
-    // kv column n * 8 + t4 * 2 + e % 2).
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      uint32_t qa[4], da[4];
-      a_frag(qa, Qs, LD, r0, kd * 16 + t4 * 2);
-      a_frag(da, dOs, LD, r0, kd * 16 + t4 * 2);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const bf16* pk = Ks + (n * 8 + g) * LD + kd * 16 + t4 * 2;
-        mma_bf16(s[n], qa, ld32(pk), ld32(pk + 8));
-        const bf16* pv = Vs + (n * 8 + g) * LD + kd * 16 + t4 * 2;
-        mma_bf16(dp[n], da, ld32(pv), ld32(pv + 8));
+  if (threadIdx.x < 128) {  // producer warpgroup
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&qmap);
+      tma_prefetch(&kmap);
+      tma_prefetch(&vmap);
+      tma_prefetch(&domap);
+      int it = 0;  // kv tiles loaded so far: ring stage it % NST
+      for (int r = 0, t; (t = snake_tile(r, n_tiles)) >= 0; ++r) {
+        const int q0 = (n_qt - 1 - t / (B * H)) * RQ, bh = t % (B * H), b = bh / H,
+                  h = bh % H, qb = r % NQB;
+        const int64_t bhS = (int64_t)bh * S;
+        mbar_wait(&q_empty[qb], ((r / NQB) & 1) ^ 1);
+        mbar_arrive_expect_tx(&q_full[qb], C::kQTx);
+        tma_load_rows<D>(q_tile(qb), &qmap, &q_full[qb], RQ, q0, h, b);
+        tma_load_rows<D>(q_tile(qb) + C::kQBytes, &domap, &q_full[qb], RQ, q0, h, b);
+        const uint32_t rows = smem_addr(lse_at(qb));
+        bulk_load(rows, lse + bhS + q0, C::kRowBytes, &q_full[qb]);
+        bulk_load(rows + C::kRowBytes, delta + bhS + q0, C::kRowBytes, &q_full[qb]);
+        for (int k0 = 0; k0 < q0 + RQ; k0 += RK, ++it) {  // up to the diagonal
+          const int st = it % NST;
+          mbar_wait(&kv_empty[st], ((it / NST) & 1) ^ 1);
+          mbar_arrive_expect_tx(&kv_full[st], 2 * C::kKBytes);
+          tma_load_rows<D>(k_tile(st), &kmap, &kv_full[st], RK, k0, h, b);
+          tma_load_rows<D>(k_tile(st) + C::kKBytes, &vmap, &kv_full[st], RK, k0, h, b);
+        }
       }
     }
+    return;
+  }
 
-    // ds = p (dp - delta) scale, into s
+  regs_inc<240>();
+  const int c = threadIdx.x / 128 - 1;  // consumer warpgroup: q rows 64c ..
+  const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int lr = 64 * c + 16 * w + g;  // this thread's rows of the tile: lr, lr + 8
+  const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
+  uint32_t q_rows, do_rows;  // this warpgroup's rows of the q and do tiles
+
+  float dq_acc[D / 2];
+  // s = q k^T and dp = do v^T of one kv tile: element (row g or g + 8,
+  // kv column 8 j + 2 t4 + {0, 1}) of this warp's 16 rows is s[4 j + {0, 1}]
+  // or s[4 j + {2, 3}].
+  float s[RK / 2], dp[RK / 2];
+  uint32_t da[RK / 16][4];  // the previous kv tile's ds, as A fragments
+  float nl[2], dl[2];       // -lse log2(e) and delta of rows lr, lr + 8
+
+  auto issue_sdp = [&](int it) {  // s = q k^T, dp = do v^T of stage it % NST
+    const uint32_t kt = k_tile(it % NST), vt = kt + C::kKBytes;
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<RK, 0>(s, desc_k_major(q_rows, kBoxQ, kk), desc_k_major(kt, kBoxK, kk), kk > 0);
+      wgmma_ss<RK, 0>(dp, desc_k_major(do_rows, kBoxQ, kk), desc_k_major(vt, kBoxK, kk), kk > 0);
+    }
+    wgmma_commit();
+  };
+  auto issue_dq = [&](int it) {  // dq += ds k, k of stage it % NST read MN-major
+    const uint32_t kt = k_tile(it % NST);
+#pragma unroll
+    for (int j = 0; j < RK / 16; ++j)
+      wgmma_rs<D, 1>(dq_acc, da[j], desc_mn_major(kt, kBoxK, j), 1);
+    wgmma_commit();
+  };
+  // ds = p (dp - delta) scale into s, p = exp2(s scale log2(e) - lse log2(e)),
+  // one FMA before ex2.approx; the causal compare, on a diagonal tile only,
+  // takes `rel`, this thread's first q row less the kv tile's first row.
+  auto grad = [&](bool diagonal, int rel) {
+#pragma unroll
+    for (int j = 0; j < RK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int q_pos = q0 + r0 + 8 * (e / 2);
-        const int k_pos = k0 + n * 8 + t4 * 2 + e % 2;
-        const float p =
-            q_pos >= k_pos ? expf(s[n][e] * scale - lse_r[e / 2]) : 0.f;
-        s[n][e] = p * (dp[n][e] - delta_r[e / 2]) * scale;
+        float p = exp2_ftz(fmaf(s[4 * j + e], sl2, nl[e >> 1]));
+        if (diagonal && 8 * j + 2 * t4 + (e & 1) > rel + 8 * (e >> 1)) p = 0.f;
+        s[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]) * scale;
       }
+  };
+  auto arrive = [&](uint64_t* bar) {  // this warp is done with what bar guards
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // Ping-pong (FA3): the two warpgroups take turns to issue their products,
+  // so one's exp2 and ds run while the other's products hold the tensor
+  // cores.  Each takes one turn a kv tile and one more a q tile, skipped
+  // tiles included, so the turns stay paired.
+  auto turn_take = [&] { named_sync(1 + c, 256); };
+  auto turn_give = [&] { named_arrive(2 - c, 256); };
+  if (c == 1) named_arrive(1, 256);  // warpgroup 0 goes first
 
-    // dq += ds k: the ds accumulators of blocks 2j and 2j + 1 are, element
-    // for element, the A fragment of k-step j; k is B, read transposed.
+  int it = 0;  // kv tiles consumed so far: ring stage it % NST
+  for (int r = 0, t; (t = snake_tile(r, n_tiles)) >= 0; ++r) {
+    const int q0 = (n_qt - 1 - t / (B * H)) * RQ, qb = r % NQB;
+    const int qr0 = q0 + 64 * c;  // this warpgroup's first q row
+    // kv tiles 0 .. n_kt - 1 reach the tile's diagonal; this warpgroup's
+    // rows see the first n_mine of them, the rest lie wholly above its rows.
+    const int n_kt = (q0 + RQ) / RK, n_mine = (qr0 + 64 + RK - 1) / RK;
+    const int qr = qr0 + 16 * w + g;  // this thread's q rows: qr, qr + 8
 #pragma unroll
-    for (int j = 0; j < kBlock / 16; ++j) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * j][0], s[2 * j][1]), pack_bf16(s[2 * j][2], s[2 * j][3]),
-          pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-          pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+    mbar_wait(&q_full[qb], (r / NQB) & 1);
+    q_rows = q_tile(qb) + 64 * c * 128;
+    do_rows = q_rows + C::kQBytes;
+    const float* const lse_s = lse_at(qb);
 #pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        uint32_t bk[4];
-        b_frags_trans(bk, Ks, LD, j * 16, n * 8);
-        mma_bf16(acc[n], a, bk[0], bk[1]);
-        mma_bf16(acc[n + 1], a, bk[2], bk[3]);
-      }
+    for (int i = 0; i < 2; ++i) {
+      nl[i] = -lse_s[lr + 8 * i] * 1.4426950408889634f;
+      dl[i] = lse_s[RQ + lr + 8 * i];
     }
-  }
 
+    // Software pipeline (FA3's intra-warpgroup overlap): while dq += ds k of
+    // kv tile kt - 1 runs on the tensor cores, ds of tile kt is computed on
+    // the CUDA cores; ds of tile kt - 1 waits in da as bf16 A fragments.
+    mbar_wait(&kv_full[it % NST], (it / NST) & 1);
+    turn_take();
+    wgmma_fence();
+    issue_sdp(it);
+    turn_give();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if (n_mine == 1) arrive(&q_empty[qb]);  // q and do are read by no later product
+    grad(RK - 1 > qr0, qr);
+    acc_to_a<RK>(da, s);
+    for (int kt = 1; kt < n_mine; ++kt, ++it) {
+      const int k0 = kt * RK;
+      mbar_wait(&kv_full[(it + 1) % NST], ((it + 1) / NST) & 1);
+      turn_take();
+      wgmma_fence();
+      issue_sdp(it + 1);
+      issue_dq(it);
+      turn_give();
+      wgmma_wait<1>();  // s and dp of tile kt have landed; ds k of tile kt - 1 may run on
+      fence_regs(s);
+      fence_regs(dp);
+      if (kt == n_mine - 1) arrive(&q_empty[qb]);
+      grad(k0 + RK - 1 > qr0, qr - k0);
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      fence_regs(da);
+      arrive(&kv_empty[it % NST]);  // k is read by no later product
+      acc_to_a<RK>(da, s);
+    }
+    turn_take();
+    wgmma_fence();
+    issue_dq(it);
+    turn_give();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    fence_regs(da);
+    arrive(&kv_empty[it % NST]);
+    ++it;
+    // A kv tile wholly above this warpgroup's rows adds nothing, but its
+    // turn is still taken and given.
+    for (int kt = n_mine; kt < n_kt; ++kt, ++it) {
+      mbar_wait(&kv_full[it % NST], (it / NST) & 1);
+      turn_take();
+      turn_give();
+      arrive(&kv_empty[it % NST]);
+    }
+
+    const int64_t off0 = ((int64_t)(t % (B * H)) * S + qr) * D + 2 * t4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    bf16* row = dq + (bh * S + q0 + r0 + 8 * i) * D + t4 * 2;
+    for (int i = 0; i < 2; ++i) {
+      const int64_t off = off0 + 8 * i * D;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8) =
-          pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dq + off + 8 * j) =
+            pack_bf16(dq_acc[4 * j + 2 * i], dq_acc[4 * j + 2 * i + 1]);
+    }
   }
 }
 
@@ -745,15 +819,15 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, typename Kernel>
-cudaError_t launch_dq(Kernel kernel, size_t smem, const Args& a, void* dq) {
+template <typename Kernel>
+cudaError_t launch_dq_f32(Kernel kernel, size_t smem, const Args& a, void* dq) {
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.S / kBlock, a.H, a.B);
   kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dO), a.lse, a.delta,
-      static_cast<T*>(dq), a.H, a.S, a.qs, a.ks, a.vs, a.dos, a.scale);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dO), a.lse,
+      a.delta, static_cast<float*>(dq), a.H, a.S, a.qs, a.ks, a.vs, a.dos, a.scale);
   return cudaGetLastError();
 }
 
@@ -771,31 +845,34 @@ cudaError_t launch_dkv_f32(Kernel kernel, size_t smem, const Args& a, void* dk,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
-  using C = Dkv<D>;
-  if (a.S % C::kRowsK != 0) return cudaErrorInvalidValue;
+// A persistent bf16 wgmma kernel with config C (Dq<D> or Dkv<D>): the
+// tensor maps of q and do (boxes of C::kRowsQ rows) and of k and v
+// (C::kRowsK), then one block per SM (at most), each walking its share of
+// the B H S / `rows` output tiles.  Returns the first map's error code the
+// driver refuses, or the launch's cudaError_t.
+template <typename C, typename Kernel, typename... Out>
+cudaError_t launch_wgmma(Kernel kernel, int D, int rows, const Args& a, Out*... out) {
+  if (a.S % C::kRowsQ != 0 || a.S % C::kRowsK != 0) return cudaErrorInvalidValue;
   CUtensorMap qm, km, vm, dom;
   int err = hopper::make_map(&qm, a.q, a.B, a.H, a.S, D, a.qs.b, a.qs.h, a.qs.s, C::kRowsQ);
   if (!err) err = hopper::make_map(&km, a.k, a.B, a.H, a.S, D, a.ks.b, a.ks.h, a.ks.s, C::kRowsK);
   if (!err) err = hopper::make_map(&vm, a.v, a.B, a.H, a.S, D, a.vs.b, a.vs.h, a.vs.s, C::kRowsK);
   if (!err) err = hopper::make_map(&dom, a.dO, a.B, a.H, a.S, D, a.dos.b, a.dos.h, a.dos.s, C::kRowsQ);
   if (err) return static_cast<cudaError_t>(err);
-  auto kernel = flash_dkv_wgmma_kernel<D>;
   cudaError_t e = prepare(kernel, C::kSmem);
   if (e != cudaSuccess) return e;
   int device, sms;
   if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return e;
-  const int n_tiles = a.B * a.H * (a.S / C::kRowsK);
-  // One block per SM (at most), each walking its share of the tiles.
+  const int n_tiles = a.B * a.H * (a.S / rows);
   kernel<<<n_tiles < sms ? n_tiles : sms, C::kThreads, C::kSmem, a.stream>>>(
-      qm, km, vm, dom, a.lse, a.delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), a.B, a.H, a.S, a.scale);
+      qm, km, vm, dom, a.lse, a.delta, static_cast<bf16*>(out)..., a.B, a.H, a.S, a.scale);
   return cudaGetLastError();
 }
 
+// The shapes every kernel here takes; each wgmma launcher also checks that
+// S is a multiple of its own tiles (the f32 kernels tile by kBlock).
 bool valid(int B, int H, int S) {
   return B > 0 && H > 0 && S > 0 && S % kBlock == 0;
 }
@@ -805,7 +882,7 @@ bool valid(int B, int H, int S) {
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v, do: (B, H, S, D) addressed
 // through (batch, head, seq) strides in elements, D's stride 1; lse and delta:
 // contiguous (B, H, S) float32; outputs contiguous (B, H, S, D) in the
-// inputs' dtype.  The bf16 kernels read rows 16 bytes at a time: pointers
+// inputs' dtype.  The bf16 kernels read q, k, v and do through TMA: pointers
 // 16-byte aligned and strides multiples of 8.  Each returns a cudaError_t (0
 // on success), launches on `stream`, does not synchronise and allocates
 // nothing.
@@ -822,13 +899,13 @@ extern "C" int flash_attention_bwd_dq(
                {q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
                {do_sb, do_sh, do_ss}, scale, static_cast<cudaStream_t>(stream)};
   if (dtype == 1 && D == 64)
-    return launch_dq<bf16>(flash_dq_mma_kernel<64>, dq_mma_smem_bytes<64>(), a, dq);
+    return launch_wgmma<Dq<64>>(flash_dq_wgmma_kernel<64>, 64, Dq<64>::kRowsQ, a, dq);
   if (dtype == 1 && D == 128)
-    return launch_dq<bf16>(flash_dq_mma_kernel<128>, dq_mma_smem_bytes<128>(), a, dq);
+    return launch_wgmma<Dq<128>>(flash_dq_wgmma_kernel<128>, 128, Dq<128>::kRowsQ, a, dq);
   if (dtype == 0 && D == 64)
-    return launch_dq<float>(flash_dq_f32_kernel<64>, dq_f32_smem_bytes<64>(), a, dq);
+    return launch_dq_f32(flash_dq_f32_kernel<64>, dq_f32_smem_bytes<64>(), a, dq);
   if (dtype == 0 && D == 128)
-    return launch_dq<float>(flash_dq_f32_kernel<128>, dq_f32_smem_bytes<128>(), a, dq);
+    return launch_dq_f32(flash_dq_f32_kernel<128>, dq_f32_smem_bytes<128>(), a, dq);
   return cudaErrorInvalidValue;
 }
 
@@ -845,13 +922,21 @@ extern "C" int flash_attention_bwd_dkv(
                B, H, S,
                {q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
                {do_sb, do_sh, do_ss}, scale, static_cast<cudaStream_t>(stream)};
-  if (dtype == 1 && D == 64) return launch_dkv_wgmma<64>(a, dk, dv);
-  if (dtype == 1 && D == 128) return launch_dkv_wgmma<128>(a, dk, dv);
+  if (dtype == 1 && D == 64)
+    return launch_wgmma<Dkv<64>>(flash_dkv_wgmma_kernel<64>, 64, Dkv<64>::kRowsK, a, dk, dv);
+  if (dtype == 1 && D == 128)
+    return launch_wgmma<Dkv<128>>(flash_dkv_wgmma_kernel<128>, 128, Dkv<128>::kRowsK, a, dk, dv);
   if (dtype == 0 && D == 64)
     return launch_dkv_f32(flash_dkv_f32_kernel<64>, dkv_f32_smem_bytes<64>(), a, dk, dv);
   if (dtype == 0 && D == 128)
     return launch_dkv_f32(flash_dkv_f32_kernel<128>, dkv_f32_smem_bytes<128>(), a, dk, dv);
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory a launch of the dq kernel for (D, dtype) asks for.
+extern "C" int flash_attention_bwd_dq_smem_bytes(int D, int dtype) {
+  if (dtype == 1) return D == 64 ? (int)Dq<64>::kSmem : (int)Dq<128>::kSmem;
+  return D == 64 ? (int)dq_f32_smem_bytes<64>() : (int)dq_f32_smem_bytes<128>();
 }
 
 // Dynamic shared memory a launch of the dk/dv kernel for (D, dtype) asks for.

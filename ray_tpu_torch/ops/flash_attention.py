@@ -2,9 +2,9 @@
 versions, forward and backward.
 
 Port of ``ray_tpu/ops/flash_attention.py``.  Three kernels replace the three
-Pallas kernels there; each one's design note is in its source, and the
-forward and dk/dv kernels share the Hopper primitives of ``csrc/hopper.cuh``
-(TMA, mbarriers, wgmma):
+Pallas kernels there; each one's design note is in its source, and their
+bf16 versions share the Hopper primitives of ``csrc/hopper.cuh`` (TMA,
+mbarriers, wgmma):
 
 - ``csrc/flash_attention_fwd.cu`` replaces ``_fwd_kernel``: o and the per-row
   log-sum-exp ``lse``, which the backward kernels and ring attention read;
@@ -137,9 +137,8 @@ def _check(q, k, v):
 
 def _check_kernel_inputs(*ts):
     """What the kernels take: f32 or bf16, D = 64 or 128, (batch, head, seq)
-    strides that are non-negative, and for bf16 rows that TMA (forward,
-    dk/dv) and 16-byte loads (dq) can read: 16-byte aligned data and byte
-    strides that are multiples of 16."""
+    strides that are non-negative, and for bf16 rows that TMA can read:
+    16-byte aligned data and byte strides that are multiples of 16."""
     B, H, S, D = ts[0].shape
     if ts[0].dtype not in _DTYPE_CODES:
         raise ValueError(f"flash attention kernels take float32 or bfloat16, got {ts[0].dtype}")
@@ -149,8 +148,8 @@ def _check_kernel_inputs(*ts):
         raise ValueError("flash attention kernels need non-negative strides")
     if ts[0].dtype == torch.bfloat16 and not all(_rows_aligned(t) for t in ts):
         raise ValueError(
-            "the bf16 kernels read rows through TMA and 16 bytes at a time: "
-            "inputs need 16-byte aligned data and strides that are multiples of 8"
+            "the bf16 kernels read rows through TMA: inputs need 16-byte "
+            "aligned data and strides that are multiples of 8"
         )
 
 

@@ -76,13 +76,13 @@ class TestFlashForward:
 
 class TestFlashBackward:
     @staticmethod
-    def _jax_bwd(S, dtype, seed):
+    def _jax_bwd(S, dtype, seed, D=64):
         """(q, k, v, o, lse, do) as numpy and the reference's (dq, dk, dv)
         from its forward and backward Pallas kernels in interpret mode."""
-        q, k, v = _qkv((1, 2, S, 64), seed=seed)
+        q, k, v = _qkv((1, 2, S, D), seed=seed)
         do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(np.float32)
         jq, jk, jv, jdo = [jnp.asarray(a, dtype) for a in (q, k, v, do)]
-        scale = 1.0 / math.sqrt(64)
+        scale = 1.0 / math.sqrt(D)
         o, lse = jfa._fwd(jq, jk, jv, scale)
         grads = jfa._bwd(jq, jk, jv, o, lse, jdo, scale)
         as_np = lambda a: np.array(a.astype(jnp.float32))  # writable
@@ -98,14 +98,17 @@ class TestFlashBackward:
             assert o_t.dtype == torch.float32 and o_t.shape == (1, 2, S, 64), name
             np.testing.assert_allclose(o_t.numpy(), r, **F32_TOL, err_msg=name)
 
-    def test_bf16_matches_jax_bwd(self):
+    # Both head widths the kernels take: GPT-2's 64, and 128, which the
+    # bf16 kernels tile differently on the card.
+    @pytest.mark.parametrize("D", [64, 128])
+    def test_bf16_matches_jax_bwd(self, D):
         """bf16 at S=384.  The reference adds each of its three blocks'
         contributions into a bf16 output, rounding after each (2^-9 of a
         running sum that may exceed the final value); the port sums in f32
         and rounds once.  Both round p and ds to bf16 before their products,
         where a summation-order difference can flip a rounding.  Those few
         roundings stay within 2e-2 of the value plus 2e-2 (|grads| up to 4)."""
-        inputs, ref = self._jax_bwd(384, jnp.bfloat16, seed=3)
+        inputs, ref = self._jax_bwd(384, jnp.bfloat16, seed=3, D=D)
         out = tfa.flash_attention_bwd(*[torch.from_numpy(a).to(
             torch.float32 if i == 4 else torch.bfloat16) for i, a in enumerate(inputs)])
         for name, o_t, r in zip(("dq", "dk", "dv"), out, ref):
