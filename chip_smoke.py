@@ -39,7 +39,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
      finite and fall.  One step's gradients with flash and with dense
      attention, from the same weights, must agree within a bf16 tolerance.
      The lm-head's backward is timed, and one step is profiled by kernel
-     group.
+     group;
+  7. [llama-parity]: Mistral-7B at its published widths and depth (bf16
+     weights from a seeded generator) prefills prompts of 512 and 97 tokens
+     into rows 0 and 3 of an 8-row rolling cache (prefill_into_slot) and
+     decodes 32 steps (decode_step_rowwise) with the rows at different
+     positions; every logit vector is held against the full forward over
+     the same tokens, and a cache rounded through float8 must fail the same
+     tolerances; then the same at the same widths and cache shape cut to
+     the model's first two layers, against a floor small enough to see one
+     misplaced slot of the mask;
+  8. [llama-rolling]: a tiny windowed f32 model through LLMEngine with a
+     9-slot rolling cache decodes 30 tokens, which must equal generate()'s;
+  9. [serve]: 24 seeded streaming requests in two waves through
+     LLMEngine(max_slots=8, max_len=8192, max_prompt_len=512) at Mistral-7B
+     width: time to first token, gaps between tokens, tokens/s, a decode
+     step's host and device time and idle share, a 512-token prefill, peak
+     memory, beside the card's bounds.  The flash kernels' counts are reset
+     before phases 7-9 and must read 0 after: Llama attention is plain.
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches on the training path, error against its plain version,
 time, the plain version's time, the library call's time and the card's
@@ -106,6 +123,36 @@ FLASH_VS_DENSE_LOSS = 1e-2
 # relative) are carried back through 12 layers.
 FLASH_VS_DENSE_GRAD = 5e-2
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# The serving configuration: Mistral-7B with bf16 weights (the published
+# checkpoint's dtype; f32 masters would be cast down at every use).
+SERVE_ENGINE = dict(max_slots=8, max_len=8192, max_prompt_len=512)
+PARITY_PROMPTS = {0: 512, 3: 97}  # cache row -> prompt length
+PARITY_STEPS = 32
+# Cached path (prefill_into_slot, decode_step_rowwise) against the full
+# forward over the same tokens, on each row's (33, 32000) logit block, both
+# in bf16.  The two round the same values to bf16 but sum them in other
+# orders (other GEMM shapes; a masked softmax over 4607 slots against a
+# causal one), and a random-weight Mistral amplifies such single roundings
+# with depth: on an H100 80GB HBM3 this script measured the full forward
+# 4.0% (|d|/|ref|, max |d| 0.28 on logits of std 1.28) from itself at a
+# sequence one token shorter.  So at full depth the cached path is held to
+# twice that floor, and to the accuracy of the full forward: each is about
+# 5.8% from the same forward in f32, and the cached path may be at most
+# f32_ratio times as far.  A cache rounded through float8 e4m3 (2^-4
+# relative) must fail them.
+PARITY_TOL = dict(rel=0.08, max_abs=0.6, f32_ratio=1.25)
+# The same prefill and decode at the same widths and cache shape, cut to
+# the model's first two layers (two, so that a layer's cache feeds the
+# next), where the floor is small enough to see one misplaced slot of the
+# mask.  On the same card the full forward measured 0.53% and 0.48% (max
+# |d| 0.043, 0.038) from itself one token shorter there, the cached path
+# 0.75% and 0.78% (max |d| 0.050, 0.051) from the full forward, and both
+# equally far from f32 (cached/full 1.004 and 1.000).  So: twice the floor
+# for |d|/|ref| and max |d|, and at most 10% farther from f32 than the
+# full forward.
+PARITY_SHALLOW_LAYERS = 2
+PARITY_SHALLOW_TOL = dict(rel=0.01, max_abs=0.08, f32_ratio=1.1)
+SERVE_REQUESTS, SERVE_WAVE_GAP_S = 24, 0.5
 
 
 def _require(cond, msg):
@@ -337,10 +384,14 @@ def phase_tolerance_floor(fa):
                       "kernel vs f64-product plain %d (%.4g)" % (*outside(g, r), *outside(a, r), *outside(g, a)))
 
 
-def _spread(samples):
+def _pct(samples, f):
     s = sorted(samples)
-    q = lambda f: s[min(len(s) - 1, int(f * len(s)))]
-    return s[len(s) // 2], q(0.25), q(0.75)
+    return s[min(len(s) - 1, int(f * len(s)))]
+
+
+def _spread(samples):
+    """Median and quartiles."""
+    return _pct(samples, 0.5), _pct(samples, 0.25), _pct(samples, 0.75)
 
 
 def _device_events(run):
@@ -541,11 +592,12 @@ def phase_profile(run, label, unprofiled_ms, top=6, expect=None):
     """Device time by kernel group over one ``run()`` (torch.profiler).  The
     profiler slows the host, so the device's idle share is taken against the
     unprofiled time as well as the profiled window.  ``expect`` maps a kernel
-    name to the launches of it the run must show."""
+    name to the launches of it the run must show.  Returns the device-busy
+    ms, or None when no device events were recorded."""
     kernels = _device_events(run)
     if not kernels:
         _log("profile", f"{label}: no device events recorded: not measured")
-        return
+        return None
     for name, n in (expect or {}).items():
         got = sum(name in e.name for e in kernels)
         _require(got == n, f"{label}: {got} launches of {name} profiled, expected {n}")
@@ -574,6 +626,13 @@ def phase_profile(run, label, unprofiled_ms, top=6, expect=None):
         _log("profile", f"{label}: {group}: {t / 1e3:.3f} ms ({t / busy:.1%}) in {n} kernels")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         _log("profile", f"{label}: {t / 1e3:8.3f} ms {t / busy:6.1%} x{n:<3d} {name[:90]}")
+    return busy / 1e3
+
+
+def _flash_counts_zero(fa):
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_dq.launches = 0
+    fa.flash_attention_dkv.launches = 0
 
 
 def _counts(fa):
@@ -592,9 +651,7 @@ def phase_train(fa, gpt2, spmd, model, tokens):
     state = spmd.TrainState(0, model)
     losses, norms, samples = [], [], []
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_dq.launches = 0
-    fa.flash_attention_dkv.launches = 0
+    _flash_counts_zero(fa)
     for i in range(TRAIN_WARMUP + TRAIN_STEPS):
         before = _counts(fa)
         torch.cuda.synchronize()
@@ -682,6 +739,344 @@ def phase_time_head_backward(model, x_rows):
     return times
 
 
+def _parity_errors(cached, full):
+    """|d| / |full| (Frobenius) and max |d| of two logit blocks."""
+    d = (cached - full).float()
+    return (d.norm() / full.float().norm()).item(), d.abs().max().item()
+
+
+def _teacher_forced_decode(llama, model, cache, prompts, first, steps, feed=None):
+    """Decode ``steps`` tokens for the rows in ``prompts`` with
+    decode_step_rowwise, the other rows at position 0.  Each row is fed its
+    greedy token, or ``feed[row][i]`` when given.  Returns per row the
+    stacked logits (steps, V) and the tokens fed."""
+    B = cache["k"].shape[1]
+    logits = {row: [] for row in prompts}
+    fed = {row: [] for row in prompts}
+    last = {row: int(first[row].argmax()) for row in prompts}
+    for i in range(steps):
+        tokens, pos = [0] * B, [0] * B
+        for row, n in prompts.items():
+            tokens[row] = feed[row][i] if feed else last[row]
+            pos[row] = n + i
+            fed[row].append(tokens[row])
+        out, _ = llama.decode_step_rowwise(model, torch.tensor(tokens, device=cache["k"].device), cache, pos)
+        for row in prompts:
+            logits[row].append(out[row])
+            last[row] = int(out[row].argmax())
+    return {row: torch.stack(v) for row, v in logits.items()}, fed
+
+
+def _parity(cached, full, f32, tol):
+    """(|d|/|ref| and max |d| against the full forward, and the ratio of
+    the cached path's and the full forward's |d|/|ref| against f32), and
+    whether all three are within ``tol``."""
+    rel, mx = _parity_errors(cached, full)
+    ratio = _parity_errors(cached, f32)[0] / _parity_errors(full, f32)[0]
+    ok = rel < tol["rel"] and mx < tol["max_abs"] and ratio <= tol["f32_ratio"]
+    return dict(rel=rel, max_abs=mx, f32_ratio=ratio), ok
+
+
+def _first_layers(llama, model, n):
+    """A model of ``model``'s first ``n`` layers, sharing its tensors."""
+    cfg = dataclasses.replace(model.config, num_layers=n)
+    cut = llama.Llama(cfg, "meta")
+    cut.tok_embed, cut.final_norm = model.tok_embed, model.final_norm
+    cut.blocks = torch.nn.ModuleList(model.blocks[:n])
+    if not cfg.tie_embeddings:
+        cut.lm_head = model.lm_head
+    return cut
+
+
+def phase_llama_parity(llama, model, tol):
+    """Prefill two prompts into rows of the serving cache, decode
+    PARITY_STEPS steps, and hold every logit vector against the full
+    forward over the same tokens (and both against the full forward in
+    f32) within ``tol``; then the same with the cache rounded through
+    float8 after the prefill, which must fail."""
+    cfg, dev = model.config, model.tok_embed.device
+    depth = f"{cfg.num_layers} layers"
+    T = llama.rolling_cache_len(cfg, SERVE_ENGINE["max_prompt_len"])
+    cache = llama.init_cache(cfg, SERVE_ENGINE["max_slots"], T, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    prompts = {row: torch.randint(0, cfg.vocab_size, (1, n), generator=g, device=dev)
+               for row, n in PARITY_PROMPTS.items()}
+    lens = {row: t.shape[1] for row, t in prompts.items()}
+
+    def prefill():
+        return {row: llama.prefill_into_slot(model, t, cache, row)[0][0] for row, t in prompts.items()}
+
+    first = prefill()
+    steps, fed = _teacher_forced_decode(llama, model, cache, lens, first, PARITY_STEPS)
+    results, refs = {}, {}
+    with torch.inference_mode():
+        m32 = llama.Llama(dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32), dev)
+        for p32, p in zip(m32.parameters(), model.parameters()):
+            p32.copy_(p)
+        for row, t in prompts.items():
+            n = lens[row]
+            seq = torch.cat([t[0], torch.tensor(fed[row], device=dev)])[None]
+            full, f32 = model(seq)[0, n - 1:], m32(seq)[0, n - 1:]
+            floor = _parity_errors(model(seq[:, :-1])[0, n - 1:], full[:-1])
+            cached = torch.cat([first[row][None], steps[row]])
+            _require(cached.shape == full.shape == (PARITY_STEPS + 1, cfg.vocab_size),
+                     f"row {row}: cached {tuple(cached.shape)}, full {tuple(full.shape)}")
+            _require(bool(torch.isfinite(cached).all()), f"row {row}: non-finite cached logits")
+            res, ok = _parity(cached, full, f32, tol)
+            res["greedy_agreement"] = (cached.argmax(-1) == full.argmax(-1)).float().mean().item()
+            res["floor_rel"], res["floor_max_abs"] = floor
+            _log("llama-parity", f"{depth}, row {row} (prompt {n}, positions {n - 1}..{n + PARITY_STEPS - 1}): "
+                                 f"cached vs full |d|/|ref| {res['rel']:.4g} (tol {tol['rel']}), max|d| "
+                                 f"{res['max_abs']:.4g} (tol {tol['max_abs']}); vs f32, cached/full "
+                                 f"{res['f32_ratio']:.4f} (tol {tol['f32_ratio']}); logit std "
+                                 f"{full.std().item():.4g}; greedy agreement {res['greedy_agreement']:.4f} "
+                                 f"(not gated); floor, full vs full one token shorter: |d|/|ref| "
+                                 f"{floor[0]:.4g}, max|d| {floor[1]:.4g}")
+            _require(ok, f"{depth}, row {row}: cached path disagrees with the full forward: {res}")
+            results[row], refs[row] = res, (full, f32)
+        del m32
+    # Negative control: the same run with the prompts' cache rounded to
+    # float8 e4m3 and back must fail, or the tolerances are too loose to see
+    # a cached path computed below bf16.
+    first = prefill()
+    for t in cache.values():
+        t.copy_(t.to(torch.float8_e4m3fn).to(t.dtype))
+    steps, _ = _teacher_forced_decode(llama, model, cache, lens, first, PARITY_STEPS, feed=fed)
+    for row in prompts:
+        res, ok = _parity(torch.cat([first[row][None], steps[row]]), *refs[row], tol)
+        _log("llama-parity", f"{depth}, control, cache through float8 e4m3: row {row}: |d|/|ref| "
+                             f"{res['rel']:.4g}, max|d| {res['max_abs']:.4g}, vs f32 cached/full "
+                             f"{res['f32_ratio']:.4f}")
+        _require(not ok, f"{depth}, row {row}: a float8 cache passes the parity tolerances")
+        results[row]["float8_control"] = res
+    return results
+
+
+async def _collect(engine, prompt, max_new):
+    return [tok async for tok in engine.stream(prompt, max_new)]
+
+
+def phase_llama_rolling(llama, LLMEngine, device):
+    """The rolling cache wrapping, bit for bit: a tiny windowed model in f32
+    on the card, 30 tokens through a 9-slot cache against full recompute."""
+    import asyncio
+
+    cfg = llama.LlamaConfig.tiny(sliding_window=6)
+    model = llama.init(cfg, torch.Generator(device=device).manual_seed(3), device)
+    engine = LLMEngine(model, max_slots=2, max_len=64, max_prompt_len=4, device=device)
+    _require(engine.cache_len == 9 and engine.cache["k"].shape[2] == 9, f"cache_len {engine.cache_len}")
+    prompt = [3, 7, 11, 2]
+    got = asyncio.run(_collect(engine, prompt, 30))
+    ref = llama.generate(model, [prompt], max_new_tokens=30)[0, len(prompt):].tolist()
+    _log("llama-rolling", f"window 6, cache_len 9, 30 tokens (positions 4..33 wrap the cache 3 times): "
+                          f"engine {got[:8]}... generate {ref[:8]}...")
+    _require(got == ref, f"rolling-cache engine tokens {got} differ from generate's {ref}")
+    _log("llama-rolling", "engine tokens equal generate()'s, all 30")
+
+
+def _weight_bytes(llama, cfg, rows):
+    """Bytes of the weights a pass over ``rows`` tokens reads: every one,
+    but of an untied embedding table only the rows it gathers."""
+    elt = torch.finfo(cfg.param_dtype).bits // 8
+    n = llama.num_params(cfg)
+    if not cfg.tie_embeddings:
+        n -= (cfg.vocab_size - rows) * cfg.embed_dim
+    return n * elt
+
+
+def _kv_bytes(cfg, rows, slots):
+    """Bytes of k and v over ``slots`` cache slots of ``rows`` rows."""
+    elt = torch.finfo(cfg.dtype).bits // 8
+    return 2 * cfg.num_layers * rows * slots * cfg.num_kv_heads * cfg.head_dim * elt
+
+
+def _decode_bound(llama, cfg, T, B):
+    """Least time for one decode step over B rows: the weights read once
+    (B rows of the embedding table), the whole cache read (the step attends
+    over all T slots of each row, as the reference), the new k and v and
+    the f32 logits written, against 2 operations per weight per row and
+    the attention products."""
+    n = llama.num_params(cfg)
+    nbytes = _weight_bytes(llama, cfg, B) + _kv_bytes(cfg, B, T + 1) + B * cfg.vocab_size * 4
+    flops = 2 * (n - cfg.vocab_size * cfg.embed_dim) * B + 4 * cfg.num_layers * B * cfg.embed_dim * T
+    return (*_bound(nbytes, flops), nbytes, flops)
+
+
+def _prefill_bound(llama, cfg, S):
+    """Least time for an S-token prefill into one row: the weights read
+    once (S rows of the embedding table), the S tokens' k and v and one f32
+    logit vector written, against the causal products (each query over the
+    keys up to itself), the head for the last token only."""
+    n = llama.num_params(cfg)
+    nbytes = _weight_bytes(llama, cfg, S) + _kv_bytes(cfg, 1, S) + cfg.vocab_size * 4
+    body = n - 2 * cfg.vocab_size * cfg.embed_dim
+    flops = 2 * body * S + 2 * cfg.vocab_size * cfg.embed_dim + 4 * cfg.num_layers * cfg.embed_dim * S * (S + 1) // 2
+    return (*_bound(nbytes, flops), nbytes, flops)
+
+
+def phase_serve(llama, LLMEngine, model, smi):
+    """SERVE_REQUESTS streaming requests in two waves through the engine at
+    full width, timed per token on the host; then one decode step and one
+    512-token prefill are profiled."""
+    import asyncio
+
+    import numpy as np
+
+    cfg, dev = model.config, model.tok_embed.device
+    engine = LLMEngine(model, device=dev, **SERVE_ENGINE)
+    rng = np.random.default_rng(5)
+    lens = np.clip(rng.lognormal(np.log(200), 0.6, SERVE_REQUESTS), 64, 512).astype(int)
+    new = rng.integers(32, 129, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    delays = [0.0 if i < SERVE_REQUESTS // 2 else SERVE_WAVE_GAP_S for i in range(SERVE_REQUESTS)]
+    _log("serve", f"{SERVE_REQUESTS} requests, waves of {SERVE_REQUESTS // 2} at 0 and {SERVE_WAVE_GAP_S} s; "
+                  f"prompt tokens (log-normal, median 200, sigma 0.6, clipped to [64, 512]): min {lens.min()} "
+                  f"median {int(np.median(lens))} mean {lens.mean():.1f} max {lens.max()}; new tokens "
+                  f"(uniform [32, 128]): min {new.min()} median {int(np.median(new))} mean {new.mean():.1f} "
+                  f"max {new.max()}; engine {SERVE_ENGINE}, cache_len {engine.cache_len}")
+    host = {"prefill": [], "decode": []}
+
+    def timed(fn, store):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)  # returns host ints: the device has finished
+            store.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    # Instance attributes over the methods, deleted after the run so that
+    # the direct calls below are not counted as the engine's.
+    engine._prefill = timed(engine._prefill, host["prefill"])
+    engine._decode = timed(engine._decode, host["decode"])
+
+    async def one(prompt, max_new, delay, records):
+        await asyncio.sleep(delay)
+        submit, times, toks = time.perf_counter(), [], []
+        async for tok in engine.stream(prompt, max_new):
+            times.append(time.perf_counter())
+            toks.append(tok)
+        records.append((submit, times, toks, max_new))
+
+    async def run():
+        records = []
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one(p, int(n), d, records) for p, n, d in zip(prompts, new, delays)))
+        return time.perf_counter() - t0, records
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall, records = asyncio.run(run())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del engine._prefill, engine._decode
+    for submit, times, toks, max_new in records:
+        _require(len(toks) == max_new and all(0 <= t < cfg.vocab_size for t in toks),
+                 f"a request got {len(toks)} tokens of {max_new}")
+    ttft = [(times[0] - submit) * 1e3 for submit, times, _, _ in records]
+    gaps = [(b - a) * 1e3 for _, times, _, _ in records for a, b in zip(times, times[1:])]
+    n_out = sum(len(toks) for _, _, toks, _ in records)
+    n_decode = n_out - len(records)
+    dec = host["decode"]
+    dec_ms = _pct(dec, 0.5)
+    _require(engine.admitted_total == SERVE_REQUESTS and engine.shed_total == 0,
+             f"admitted {engine.admitted_total}, shed {engine.shed_total}")
+    _log("serve", f"{smi}: {n_out} tokens in {wall:.3f} s: {n_out / wall:.1f} output tokens/s, "
+                  f"{n_decode / wall:.1f} decode tokens/s; {len(dec)} decode steps, "
+                  f"{n_decode / len(dec):.2f} rows active a step on average")
+    _log("serve", f"time to first token ms: median {_pct(ttft, 0.5):.1f}, p90 {_pct(ttft, 0.9):.1f}, "
+                  f"max {max(ttft):.1f}; gap between output tokens ms: median {_pct(gaps, 0.5):.2f}, "
+                  f"p90 {_pct(gaps, 0.9):.2f}, max {max(gaps):.2f}")
+    _log("serve", f"host ms per engine call: decode step median {dec_ms:.3f} (p10 "
+                  f"{_pct(dec, 0.1):.3f}, p90 {_pct(dec, 0.9):.3f}); prefill median "
+                  f"{_pct(host['prefill'], 0.5):.3f}, max {max(host['prefill']):.3f} over "
+                  f"{len(host['prefill'])} prompts; peak memory {peak:.2f} GiB")
+    # One decode step with every row active at serving-like positions, and
+    # one 512-token prefill: host time (synchronised) and device time.
+    tokens = rng.integers(0, cfg.vocab_size, SERVE_ENGINE["max_slots"]).tolist()
+    pos = [int(x) for x in rng.integers(64, 640, SERVE_ENGINE["max_slots"])]
+    step_ms = _spread([_time_host(lambda: engine._decode(tokens, pos)) for _ in range(10)])[0]
+    step_bound = _decode_bound(llama, cfg, engine.cache_len, SERVE_ENGINE["max_slots"])
+    busy = phase_profile(lambda: engine._decode(tokens, pos), "one decode step (8 rows)", step_ms, top=10,
+                         expect={"flash_": 0})
+    # The attention's share: one layer's _cached_attention at this step's
+    # shapes (grouped products, mask, softmax), by device time, times L.
+    q = torch.randn((SERVE_ENGINE["max_slots"], 1, cfg.num_heads, cfg.head_dim), device=dev).to(cfg.dtype)
+    t_idx = torch.arange(engine.cache_len, device=dev)
+    mask = (t_idx[None, :] <= torch.tensor(pos, device=dev)[:, None])[:, None]
+    attn_ms = cfg.num_layers * _device_ms(
+        lambda: llama._cached_attention(q, engine.cache["k"][0], engine.cache["v"][0], mask, cfg), 10)
+    # Yardstick, used nowhere in the port: the same over a cache one slot
+    # longer, 4608 slots, a multiple of 8, so that every row of the scores
+    # and probabilities starts 16-byte aligned for cuBLAS.
+    B, T = SERVE_ENGINE["max_slots"], engine.cache_len
+    kv = [torch.randn((B, T + 1, cfg.num_kv_heads, cfg.head_dim), device=dev).to(cfg.dtype) for _ in range(2)]
+    mask8 = torch.cat([mask, torch.zeros_like(mask[..., :1])], dim=-1)
+    aligned_ms = cfg.num_layers * _device_ms(lambda: llama._cached_attention(q, *kv, mask8, cfg), 10)
+    del kv
+    _log("serve", f"decode step (8 rows): attention (_cached_attention x {cfg.num_layers} layers) "
+                  f"{attn_ms:.3f} ms of device time at {T} slots; {aligned_ms:.3f} ms at {T + 1} slots "
+                  f"(yardstick)")
+    _log("serve", f"decode step (8 rows): host {step_ms:.3f} ms (median of 10), device busy "
+                  f"{_ms(busy)}, bound {step_bound[0]:.3f} ms ({step_bound[1]}: "
+                  f"{step_bound[2] / 1e9:.2f} GB, {step_bound[3] / 1e9:.1f} GFLOP); "
+                  f"host/bound {step_ms / step_bound[0]:.2f}x")
+    prompt = torch.tensor([rng.integers(0, cfg.vocab_size, 512).tolist()], device=dev)
+
+    def prefill():
+        llama.prefill_into_slot(model, prompt, engine.cache, 0)[0].argmax().item()
+
+    pre_ms = _spread([_time_host(prefill) for _ in range(5)])[0]
+    pre_bound = _prefill_bound(llama, cfg, 512)
+    pre_busy = phase_profile(prefill, "one 512-token prefill", pre_ms, top=8, expect={"flash_": 0})
+    _log("serve", f"prefill of 512 tokens: host {pre_ms:.3f} ms (median of 5), device busy {_ms(pre_busy)}, "
+                  f"bound {pre_bound[0]:.3f} ms ({pre_bound[1]}: {pre_bound[2] / 1e9:.2f} GB, "
+                  f"{pre_bound[3] / 1e12:.2f} TFLOP)")
+    return dict(wall_s=wall, output_tokens=n_out, output_tokens_per_s=n_out / wall,
+                decode_tokens_per_s=n_decode / wall, ttft_ms_median=_pct(ttft, 0.5),
+                ttft_ms_max=max(ttft), gap_ms_median=_pct(gaps, 0.5), gap_ms_p90=_pct(gaps, 0.9),
+                decode_step_host_ms=step_ms, decode_step_busy_ms=busy, decode_step_bound_ms=step_bound[0],
+                decode_step_attention_ms=attn_ms, decode_step_attention_4608_slots_ms=aligned_ms,
+                engine_decode_step_ms_median=dec_ms, prefill_512_host_ms=pre_ms,
+                prefill_512_busy_ms=pre_busy, prefill_512_bound_ms=pre_bound[0], peak_gib=peak)
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.3f} ms"
+
+
+def _time_host(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_llama(fa, smi):
+    """Phases 7-9 on one Mistral-7B model; the flash kernels' counts are
+    reset before and must read 0 after."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    t0 = time.perf_counter()
+    _flash_counts_zero(fa)
+    cfg = llama.LlamaConfig.mistral_7b(param_dtype=torch.bfloat16)
+    model = llama.init(cfg, torch.Generator(device="cuda").manual_seed(2), "cuda")
+    n = llama.num_params(cfg)
+    _log("llama-parity", f"Mistral-7B: {n / 1e9:.3f} B parameters ({n * 2 / 1e9:.2f} GB in bf16), "
+                         f"{cfg.num_layers} layers, E {cfg.embed_dim}, {cfg.num_heads} q / "
+                         f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}, MLP {cfg.mlp_dim}, window "
+                         f"{cfg.sliding_window}; built in {time.perf_counter() - t0:.1f} s")
+    parity = {f"{cfg.num_layers} layers": phase_llama_parity(llama, model, PARITY_TOL),
+              f"{PARITY_SHALLOW_LAYERS} layers": phase_llama_parity(
+                  llama, _first_layers(llama, model, PARITY_SHALLOW_LAYERS), PARITY_SHALLOW_TOL)}
+    phase_llama_rolling(llama, LLMEngine, "cuda")
+    serve = phase_serve(llama, LLMEngine, model, smi)
+    counts = _counts(fa)
+    _require(not any(counts.values()), f"the Llama paths launched flash kernels: {counts}")
+    _log("done", f"llama phases {time.perf_counter() - t0:.1f} s; flash kernel launches on them: {counts}")
+    return {"llama_parity": parity, "serve": serve}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -721,6 +1116,12 @@ def main() -> int:
     # The step's bf16 kernels are the wgmma ones, one launch a layer each.
     phase_profile(lambda: step(state, {"tokens": tokens[0]}), "one train step", train["step_ms"], top=10,
                   expect={f"flash_{k}_wgmma_kernel": cfg.num_layers for k in ("fwd", "dq", "dkv")})
+
+    # The serving path (Mistral-7B through the LLM engine), after the GPT-2
+    # state is freed so that its peak memory is its own.
+    del model, state, step, x, tokens
+    torch.cuda.empty_cache()
+    llama_out = phase_llama(fa, smi)
     _log("done", f"{time.perf_counter() - t_start:.1f} s in all")
 
     def entry_of(key, name, line, err):
@@ -747,7 +1148,7 @@ def main() -> int:
     ]
     print(json.dumps({"forward_ms": fwd, "forward_path_fwd_launches": fwd_launches,
                       "train_step_ms": train["step_ms"], "train_tokens_per_s": train["tokens_per_s"],
-                      "head_backward_ms": head, "card": smi}))
+                      "head_backward_ms": head, **llama_out, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -33,6 +33,16 @@ def _mm_f32(a, b):
     return torch.mm(a.float(), b.float())
 
 
+def bmm_f32(a, b):
+    """Batched ``a @ b`` (a: (N, M, K), b: (N, K, P)) with f32 sums and an
+    f32 result, for inference: one bf16 tensor-core product with an f32
+    output on a CUDA device (``torch.bmm`` with ``out_dtype``, which has no
+    derivative), the operands widened to f32 elsewhere, as ``_mm_f32``."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def _split_bf16(g):
     """An f32 tensor as hi + lo, two bf16 tensors: hi carries g's first 8
     significant bits, lo the next 8, and g - (hi + lo) is below 2^-16 of |g|

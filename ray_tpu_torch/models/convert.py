@@ -1,26 +1,27 @@
-"""Weights from the reference package into the port's GPT-2.
+"""Weights from the reference package into the port's models.
 
-The reference keeps GPT-2's parameters as a pytree: ``wte`` (V, E), ``wpe``
-(S, E), ``lnf_scale``/``lnf_bias`` (E,) and ``blocks``, whose every leaf is
-stacked over layers with a leading L.  The port's modules keep the same
-per-layer shapes, so layer i of each leaf is copied as it is.
+The reference keeps a model's parameters as a pytree: top-level arrays
+(GPT-2: ``wte`` (V, E), ``wpe`` (S, E), ``lnf_scale``/``lnf_bias`` (E,);
+Llama: ``tok_embed`` (V, E), ``final_norm`` (E,), ``lm_head`` (V, E) unless
+tied) and ``blocks``, whose every leaf is stacked over layers with a leading
+L.  The port's modules keep the same per-layer shapes, so layer i of each
+leaf is copied as it is.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from ray_tpu_torch.models.gpt2 import GPT2, GPTConfig
+from ray_tpu_torch.models.llama import Llama, LlamaConfig
 
-_TOP = ("wte", "wpe", "lnf_scale", "lnf_bias")
 
-
-def gpt2_params_from_jax(np_params, config: GPTConfig, device="cuda") -> GPT2:
-    """A :class:`GPT2` on ``device`` holding ``np_params``: the reference's
-    pytree of arrays, each convertible by ``np.asarray`` (numpy arrays, or
-    JAX arrays fetched to the host)."""
-    model = GPT2(config, device)
+def _load(model: nn.Module, np_params, top, num_layers: int):
+    """Copy the reference pytree ``np_params`` into ``model``: each name in
+    ``top`` into the attribute of that name, each stacked block leaf layer
+    by layer into ``model.blocks``."""
 
     def copy(dst: torch.Tensor, src, name: str):
         arr = np.array(src, dtype=np.float32)  # a writable copy
@@ -35,14 +36,29 @@ def gpt2_params_from_jax(np_params, config: GPTConfig, device="cuda") -> GPT2:
             f"block params {sorted(blocks)} do not match the port's {sorted(expected)}"
         )
     with torch.no_grad():
-        for name in _TOP:
+        for name in top:
             copy(getattr(model, name), np_params[name], name)
         for name, stacked in blocks.items():
             stacked = np.asarray(stacked, dtype=np.float32)
-            if stacked.shape[0] != config.num_layers:
+            if stacked.shape[0] != num_layers:
                 raise ValueError(
-                    f"blocks.{name}: {stacked.shape[0]} layers, expected {config.num_layers}"
+                    f"blocks.{name}: {stacked.shape[0]} layers, expected {num_layers}"
                 )
             for i, blk in enumerate(model.blocks):
                 copy(getattr(blk, name), stacked[i], f"blocks.{name}[{i}]")
     return model
+
+
+def gpt2_params_from_jax(np_params, config: GPTConfig, device="cuda") -> GPT2:
+    """A :class:`GPT2` on ``device`` holding ``np_params``: the reference's
+    pytree of arrays, each convertible by ``np.asarray`` (numpy arrays, or
+    JAX arrays fetched to the host)."""
+    return _load(GPT2(config, device), np_params, ("wte", "wpe", "lnf_scale", "lnf_bias"),
+                 config.num_layers)
+
+
+def llama_params_from_jax(np_params, config: LlamaConfig, device="cuda") -> Llama:
+    """A :class:`Llama` on ``device`` holding the reference's Llama pytree
+    ``np_params`` (arrays convertible by ``np.asarray``)."""
+    top = ("tok_embed", "final_norm") + (() if config.tie_embeddings else ("lm_head",))
+    return _load(Llama(config, device), np_params, top, config.num_layers)

@@ -29,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models.common import gelu, layernorm, matmul_f32
-from ray_tpu_torch.models.xent import chunked_xent
+from ray_tpu_torch.models.xent import next_token_loss
 from ray_tpu_torch.ops.attention import dense_attention
 from ray_tpu_torch.ops.flash_attention import flash_attention_bhsd
 
@@ -181,6 +181,11 @@ class GPT2(nn.Module):
             x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return layernorm(x, self.lnf_scale, self.lnf_bias)
 
+    @property
+    def head_weight(self):
+        """The (V, E) table the head multiplies by: ``wte``, tied."""
+        return self.wte
+
     def head(self, x):
         """Tied lm_head: features (B, S, E) → logits (B, S, V) in f32, from
         dtype operands with f32 accumulation (see ``matmul_f32``)."""
@@ -225,29 +230,9 @@ def init(config: GPTConfig, generator: Optional[torch.Generator] = None,
     return model
 
 
-def loss_fn(model: GPT2, batch):
-    """Next-token cross-entropy.  batch: {"tokens": (B, S+1)} or
-    {"inputs", "targets"} each (B, S), with an optional (B, S) "mask".  With
-    config.xent_chunk set (and S divisible by it) the head and softmax run
-    per sequence chunk."""
-    c = model.config
-    if "tokens" in batch:
-        inputs = batch["tokens"][:, :-1]
-        targets = batch["tokens"][:, 1:]
-    else:
-        inputs, targets = batch["inputs"], batch["targets"]
-    mask = batch.get("mask")
-    x = model.features(inputs)
-    if c.xent_chunk and inputs.shape[1] % c.xent_chunk == 0:
-        return chunked_xent(x, model.wte, targets, mask, c.xent_chunk, c.dtype)
-    logits = model.head(x)
-    # lse − target_logit in f32
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0] - lse
-    if mask is None:
-        return -ll.mean()
-    mask = mask.float()
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+# Next-token cross-entropy: batch {"tokens": (B, S+1)} or {"inputs",
+# "targets"}, optional "mask"; chunked with config.xent_chunk.
+loss_fn = next_token_loss
 
 
 def num_params(config: GPTConfig) -> int:

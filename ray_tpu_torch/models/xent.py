@@ -46,3 +46,29 @@ def chunked_xent(x, head_weight, targets, mask, chunk: int, dtype):
             ll_sum = ll_sum + (ll * mc).sum()
             m_sum = m_sum + mc.sum()
     return -ll_sum / torch.clamp(m_sum, min=1.0)
+
+
+def next_token_loss(model, batch):
+    """Next-token cross-entropy of a language model with ``features``,
+    ``head`` and ``head_weight`` (GPT-2 and Llama).  batch: {"tokens":
+    (B, S+1)} or {"inputs", "targets"} each (B, S), with an optional (B, S)
+    "mask".  With config.xent_chunk set (and S divisible by it) the head and
+    softmax run per sequence chunk."""
+    c = model.config
+    if "tokens" in batch:
+        inputs = batch["tokens"][:, :-1]
+        targets = batch["tokens"][:, 1:]
+    else:
+        inputs, targets = batch["inputs"], batch["targets"]
+    mask = batch.get("mask")
+    x = model.features(inputs)
+    if c.xent_chunk and inputs.shape[1] % c.xent_chunk == 0:
+        return chunked_xent(x, model.head_weight, targets, mask, c.xent_chunk, c.dtype)
+    logits = model.head(x)
+    # lse − target_logit in f32
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0] - lse
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

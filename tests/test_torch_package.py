@@ -32,7 +32,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"gpt2.py", "flash_attention.py", "chip_smoke.py"} <= names
+    assert {"gpt2.py", "llama.py", "llm.py", "flash_attention.py", "chip_smoke.py"} <= names
 
 
 def test_entry_raises_without_cuda():
@@ -45,13 +45,24 @@ def test_entry_raises_without_cuda():
 
 
 def test_model_constructors_default_to_cuda():
-    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.serve.llm import LLMEngine
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gpt2.init(gpt2.GPTConfig.tiny())
     assert gpt2.init(gpt2.GPTConfig.tiny(), device="cpu").wte.device.type == "cpu"
+    cfg = llama.LlamaConfig.tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.init(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.init_cache(cfg, 2, 16)
+    model = llama.init(cfg, device="cpu")
+    assert llama.init_cache(cfg, 2, 16, device="cpu")["k"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMEngine(model)
+    assert LLMEngine(model, device="cpu").cache["v"].device.type == "cpu"
 
 
 def test_library_path_hashes_headers(tmp_path):
