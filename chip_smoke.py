@@ -40,7 +40,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
      attention, from the same weights, must agree within a bf16 tolerance.
      The lm-head's backward is timed, and one step is profiled by kernel
      group;
-  7. [llama-parity]: Mistral-7B at its published widths and depth (bf16
+  7. [runtime] (this slice's path): the port's runtime starts with
+     init(num_cpus=4) and must detect the card (cluster GPU == device
+     count); the seed-0 GPT-2-124M state dict (CPU copies, f32) is put
+     into its object store, and a num_gpus=1 task gets it, builds the model
+     on its leased card and runs the (8, 1024) flash forward and loss with
+     the forward kernel's count reset just before and read just after (two
+     forwards: one launch a layer each); it must see exactly one card and
+     equal the driver's own forward.  A num_gpus=0 task must see no card; a
+     second one-GPU task must wait while a one-GPU actor holds the card and
+     run after kill(); every process must name ray_tpu_torch and load no
+     JAX; after shutdown() no process of the driver may remain.  Then C2:
+     the tiny flash config widened to D = 64 at S = 128 on the card, one
+     forward launch a layer, against its CPU result; at D = 16 (the kernels
+     take 64 or 128) it must raise, not fall back;
+  8. [llama-parity]: Mistral-7B at its published widths and depth (bf16
      weights from a seeded generator) prefills prompts of 512 and 97 tokens
      into rows 0 and 3 of an 8-row rolling cache (prefill_into_slot) and
      decodes 32 steps (decode_step_rowwise) with the rows at different
@@ -49,16 +63,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
      tolerances; then the same at the same widths and cache shape cut to
      the model's first two layers, against a floor small enough to see one
      misplaced slot of the mask;
-  8. [llama-rolling]: a tiny windowed f32 model through LLMEngine with a
+  9. [llama-rolling]: a tiny windowed f32 model through LLMEngine with a
      9-slot rolling cache decodes 30 tokens, which must equal generate()'s;
-  9. [serve]: 24 seeded streaming requests in two waves through
+  10. [serve]: 24 seeded streaming requests in two waves through
      LLMEngine(max_slots=8, max_len=8192, max_prompt_len=512) at Mistral-7B
      width: time to first token, gaps between tokens, tokens/s, a decode
      step's host and device time and idle share, a 512-token prefill, peak
      memory, beside the card's bounds.  The flash kernels' counts are reset
-     before phases 7-9 and must read 0 after: Llama attention is plain.
+     before phases 8-10 and must read 0 after: Llama attention is plain.
 The line before the last is a JSON object {"kernels": [...]} with each
-kernel's launches on the training path, error against its plain version,
+kernel's launches on the training path (and the forward kernel's in the
+runtime's GPU worker, "runtime_launches"), error against its plain version,
 time, the plain version's time, the library call's time and the card's
 bound; the last line is {"ok": true, "device": {...}}.  With no CUDA device
 it prints no result and exits 2.
@@ -70,6 +85,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1039,6 +1055,322 @@ def phase_serve(llama, LLMEngine, model, smi):
                 prefill_512_busy_ms=pre_busy, prefill_512_bound_ms=pre_bound[0], peak_gib=peak)
 
 
+# The runtime phase: GPT-2-124M through the port's own runtime.
+RUNTIME_CPUS = 4
+RUNTIME_REPS = 5
+NOOP_ROUND_TRIPS = 50
+# C2: the tiny flash config at the head dim the kernels take (D = 64), on
+# the card against its CPU result (the kernels' plain versions): both bf16,
+# held to the parity tests' bf16 logits tolerance (tests/test_torch_gpt2.py
+# BF16_TOL, which holds the CPU to JAX at the same widths).
+TINY_FLASH_WIDTHS = dict(embed_dim=256, num_heads=4)
+TINY_FLASH_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+def _sync():
+    # a no-op only in a CPU rehearsal of the phase (no CUDA device)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _fwd_ms(model, x, reps):
+    """Median host ms of ``reps`` synchronised forwards after one warm-up."""
+    samples = []
+    with torch.inference_mode():
+        model(x)
+        for _ in range(reps):
+            _sync()
+            t0 = time.perf_counter()
+            model(x)
+            _sync()
+            samples.append((time.perf_counter() - t0) * 1e3)
+    return sorted(samples)[len(samples) // 2]
+
+
+def _worker_facts():
+    """This process's argv, the modules of JAX or the JAX package it has
+    loaded (there must be none), and the cards it was given."""
+    import os
+
+    with open("/proc/self/cmdline", "rb") as f:
+        argv = [a.decode() for a in f.read().split(b"\0") if a]
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("ray_tpu", "jax", "jaxlib"))
+    return {"argv": argv, "foreign": foreign, "pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def _build_gpt2(state, cfg, device):
+    from ray_tpu_torch.models import gpt2
+
+    model = gpt2.GPT2(cfg, device)
+    model.load_state_dict(state)
+    return gpt2, model
+
+
+def _remote_forward(refs, cfg, tokens, t_submit, reps, device):
+    """In a GPU-leased worker: get the state dict from the store, build
+    GPT-2-124M on the leased card and run the (8, 1024) flash forward and
+    loss once with the forward kernel's count reset just before and read
+    just after; then time the forward."""
+    import ray_tpu_torch
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    t_entry = time.time()
+    t0 = time.perf_counter()
+    if device == "cuda":  # the library the driver built, from ray_tpu_torch/_build/
+        _build.load("flash_attention_fwd")
+    t_load = time.perf_counter()
+    state = ray_tpu_torch.get(refs[0])
+    t_get = time.perf_counter()
+    gpt2, model = _build_gpt2(state, cfg, device)
+    x = tokens.to(device)
+    _sync()
+    t_built = time.perf_counter()
+    fa.flash_attention_fwd.launches = 0
+    with torch.inference_mode():
+        logits = model(x[:, :-1])
+        loss = float(gpt2.loss_fn(model, {"tokens": x}))
+    _sync()
+    launches = fa.flash_attention_fwd.launches
+    t_fwd = time.perf_counter()
+    return {
+        **_worker_facts(),
+        "loss": loss, "last_logits": logits[:, -1].cpu(), "launches": launches,
+        "device_count": torch.cuda.device_count(),
+        "device_name": torch.cuda.get_device_name(0) if torch.cuda.is_available() else None,
+        "s": {"lease_to_entry": t_entry - t_submit, "kernel_load": t_load - t0,
+              "get": t_get - t_load, "build": t_built - t_get, "first_forward": t_fwd - t_built},
+        "forward_ms": _fwd_ms(model, x[:, :-1], reps),
+    }
+
+
+def _no_lease_facts():
+    return {**_worker_facts(), "cuda_available": torch.cuda.is_available()}
+
+
+class _GPT2Actor:
+    """Holds GPT-2-124M on its leased card and answers forward calls."""
+
+    def __init__(self, refs, cfg, device):
+        import ray_tpu_torch
+
+        self.device = device
+        self.gpt2, self.model = _build_gpt2(ray_tpu_torch.get(refs[0]), cfg, device)
+
+    def loss(self, tokens):
+        with torch.inference_mode():
+            return float(self.gpt2.loss_fn(self.model, {"tokens": tokens.to(self.device)}))
+
+
+def _descendants(pid):
+    """Live processes below ``pid``, from /proc (zombies excluded)."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat.rsplit(")", 1)[1].split()
+        if fields[0] != "Z":
+            parent[int(d)] = int(fields[1])
+    out, frontier = [], [pid]
+    while frontier:
+        p = frontier.pop()
+        kids = [c for c, pp in parent.items() if pp == p]
+        out += kids
+        frontier += kids
+    return out
+
+
+def _cmdline(pid):
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return [a.decode() for a in f.read().split(b"\0") if a]
+    except OSError:
+        return []
+
+
+def _check_worker(facts, what):
+    _require("ray_tpu_torch.core.worker_main" in facts["argv"],
+             f"{what}: worker argv {facts['argv']} does not name ray_tpu_torch")
+    _require(not facts["foreign"], f"{what}: worker loaded {facts['foreign']}")
+
+
+def phase_runtime(fa, gpt2, cfg, tokens, smi, device="cuda"):
+    """[runtime]: GPT-2-124M's weights through the port's object store into a
+    GPU-leased worker, which runs the flash forward on its card; card
+    exclusivity, no card without a lease, the process boundary and a clean
+    shutdown.  Then C2: the tiny flash config at D = 64 runs through the
+    forward kernel on the card, and at D = 16 raises."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api as rt_api
+
+    t0 = time.perf_counter()
+    rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+    start_s = time.perf_counter() - t0
+    try:
+        out = _runtime_checks(rt, rt_api, fa, gpt2, cfg, tokens, smi, device)
+    finally:
+        group = rt_api._node_group
+        rt.shutdown()
+    deadline = time.monotonic() + 15
+    while _descendants(os.getpid()) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = {p: _cmdline(p) for p in _descendants(os.getpid())}
+    _require(not left, f"processes left after shutdown(): {left}")
+    _require(group.gcs_proc.poll() is not None and group.raylet_proc.poll() is not None,
+             "the GCS or the raylet outlived shutdown()")
+    _log("runtime", f"shutdown(): no process of the driver remains; cluster start {start_s:.3f} s")
+    out["start_s"] = start_s
+    out["tiny_flash"] = phase_tiny_flash(fa, gpt2, device)
+    return out
+
+
+def _runtime_checks(rt, rt_api, fa, gpt2, cfg, tokens, smi, device):
+    res = rt.cluster_resources()
+    _require(res.get("GPU") == torch.cuda.device_count(),
+             f"cluster_resources() GPU {res.get('GPU')} != torch.cuda.device_count() "
+             f"{torch.cuda.device_count()}")
+    group = rt_api._node_group
+    for proc, module in ((group.gcs_proc, "ray_tpu_torch.core.gcs"),
+                         (group.raylet_proc, "ray_tpu_torch.core.raylet")):
+        _require(module in _cmdline(proc.pid), f"{module} not in {_cmdline(proc.pid)}")
+    _log("runtime", f"{smi}: init(num_cpus={RUNTIME_CPUS}) -> {res}; GCS and raylet run "
+                    f"ray_tpu_torch.core.gcs and .raylet")
+
+    # The weights through the store, as CPU copies (f32, as the model keeps them).
+    g = torch.Generator(device=device).manual_seed(0)
+    model = gpt2.init(cfg, g, device)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    nbytes = sum(v.numel() * v.element_size() for v in state.values())
+    t0 = time.perf_counter()
+    ref = rt.put(state)
+    put_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = rt.get(ref)
+    get_s = time.perf_counter() - t0
+    _require(all(torch.equal(back[k], v) for k, v in state.items()), "get() of the state dict differs")
+    del back
+    _log("runtime", f"state dict {nbytes / 1e9:.3f} GB: put {put_s:.3f} s ({nbytes / put_s / 1e9:.2f} GB/s), "
+                    f"get {get_s:.3f} s ({nbytes / get_s / 1e9:.2f} GB/s) in the driver")
+
+    # The driver's own forward of the same weights and tokens on the same card.
+    x = tokens.to(device)
+    with torch.inference_mode():
+        want_logits = model(x[:, :-1])[:, -1].float().cpu()
+        want_loss = float(gpt2.loss_fn(model, {"tokens": x}))
+    driver_ms = _fwd_ms(model, x[:, :-1], RUNTIME_REPS)
+
+    forward = rt.remote(num_gpus=1)(_remote_forward)
+    t_submit = time.time()
+    t0 = time.perf_counter()
+    got = rt.get(forward.remote([ref], cfg, tokens.cpu(), t_submit, RUNTIME_REPS, device), timeout=600)
+    first_task_s = time.perf_counter() - t0
+    _check_worker(got, "GPU task")
+    _require(got["visible"] == "0" and got["device_count"] == 1,
+             f"the GPU task sees CUDA_VISIBLE_DEVICES={got['visible']!r}, {got['device_count']} card(s)")
+    per_pass = 2 * cfg.num_layers  # the forward and loss_fn's forward
+    _require(got["launches"] == per_pass,
+             f"the GPU task launched the forward kernel {got['launches']} times, expected {per_pass}")
+    d_logits = (got["last_logits"] - want_logits).abs().max().item()
+    d_loss = abs(got["loss"] - want_loss)
+    bitwise = torch.equal(got["last_logits"], want_logits) and got["loss"] == want_loss
+    _log("runtime", f"GPU task on {got['device_name']} (CUDA_VISIBLE_DEVICES={got['visible']!r}, pid "
+                    f"{got['pid']}): loss {got['loss']:.6f} vs driver {want_loss:.6f}, last-position "
+                    f"logits max |d| {d_logits:.3g}, bit-equal {bitwise}; flash forward launches "
+                    f"{got['launches']}")
+    _require(d_logits <= TOL[torch.bfloat16]["o"]["atol"] and d_loss <= FLASH_VS_DENSE_LOSS,
+             f"the worker's forward differs from the driver's: logits {d_logits}, loss {d_loss}")
+    s = got["s"]
+    _log("runtime", f"first GPU task {first_task_s:.3f} s end to end: lease, worker start, torch import "
+                    f"and CUDA init {s['lease_to_entry']:.3f} s, kernel load {s['kernel_load']:.3f} s, "
+                    f"get of the state dict {s['get']:.3f} s ({nbytes / s['get'] / 1e9:.2f} GB/s), model "
+                    f"build {s['build']:.3f} s, first forward and loss {s['first_forward']:.3f} s")
+    _log("runtime", f"{tuple(x[:, :-1].shape)} forward, median of {RUNTIME_REPS}: {got['forward_ms']:.3f} ms in the "
+                    f"worker, {driver_ms:.3f} ms in the driver")
+
+    # No card without a lease.
+    facts = rt.get(rt.remote(num_gpus=0)(_no_lease_facts).remote(), timeout=300)
+    _check_worker(facts, "CPU task")
+    _require(facts["visible"] == "" and not facts["cuda_available"],
+             f"a task without GPUs sees CUDA_VISIBLE_DEVICES={facts['visible']!r}, "
+             f"cuda available {facts['cuda_available']}")
+
+    # The card is exclusive: a second one-GPU lease waits while the actor lives.
+    actor = rt.remote(num_gpus=1)(_GPT2Actor).remote([ref], cfg, device)
+    losses = [rt.get(actor.loss.remote(tokens.cpu()), timeout=300) for _ in range(3)]
+    _require(all(abs(v - want_loss) <= FLASH_VS_DENSE_LOSS for v in losses), f"actor losses {losses}")
+    waiting = rt.remote(num_gpus=1)(_worker_facts).remote()
+    ready, _ = rt.wait([waiting], timeout=2.0)
+    _require(not ready, "a second one-GPU task ran while the GPU actor held the card")
+    rt.kill(actor)
+    after = rt.get(waiting, timeout=300)
+    _require(after["visible"] == "0", f"the task after the actor sees {after['visible']!r}")
+    _log("runtime", f"GPU actor: 3 losses {losses}; a second one-GPU task waited 2 s unready while "
+                    f"it lived and ran on CUDA_VISIBLE_DEVICES={after['visible']!r} after kill(); a "
+                    f"task without GPUs sees CUDA_VISIBLE_DEVICES='' and no CUDA device")
+
+    noop = rt.remote(lambda: None)
+    rt.get(noop.remote())
+    trips = []
+    for _ in range(NOOP_ROUND_TRIPS):
+        t0 = time.perf_counter()
+        rt.get(noop.remote())
+        trips.append((time.perf_counter() - t0) * 1e3)
+    noop_ms = sorted(trips)[len(trips) // 2]
+    _log("runtime", f"no-op task round trip: median {noop_ms:.3f} ms of {NOOP_ROUND_TRIPS}")
+    return {"put_gb_s": nbytes / put_s / 1e9, "get_gb_s": nbytes / get_s / 1e9,
+            "worker_get_gb_s": nbytes / s["get"] / 1e9, "first_task_s": first_task_s,
+            "first_task_breakdown_s": s, "noop_ms": noop_ms, "worker_forward_ms": got["forward_ms"],
+            "driver_forward_ms": driver_ms, "launches": got["launches"], "logits_max_abs": d_logits,
+            "bitwise": bitwise}
+
+
+def phase_tiny_flash(fa, gpt2, device):
+    """C2: the CPU parity tests certify the flash branch at the tiny config
+    widened to D = 64 (embed_dim=256, num_heads=4).  On the card that config
+    runs through the forward kernel, one launch a layer, and matches its CPU
+    result (the kernels' plain versions).  The tiny config itself (D = 16)
+    raises on the card: the kernels refuse it and nothing falls back."""
+    cfg = gpt2.GPTConfig.tiny(attention_impl="flash", **TINY_FLASH_WIDTHS)
+    model = gpt2.init(cfg, torch.Generator(device=device).manual_seed(3), device)
+    cpu = gpt2.GPT2(cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=torch.Generator().manual_seed(4))
+    _flash_counts_zero(fa)
+    with torch.inference_mode():
+        got = model(tokens.to(device)).cpu()
+    counts = _counts(fa)
+    with torch.inference_mode():
+        want = cpu(tokens)
+    _require(got.shape == (2, 128, cfg.vocab_size) and bool(torch.isfinite(got).all()),
+             f"tiny flash logits {tuple(got.shape)} not finite")
+    _require(counts == {"fwd": cfg.num_layers, "dq": 0, "dkv": 0},
+             f"the D = {cfg.head_dim} tiny flash config launched {counts}, expected "
+             f"{cfg.num_layers} forward launches")
+    d = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, **TINY_FLASH_TOL)
+
+    small = gpt2.GPTConfig.tiny(attention_impl="flash")
+    m16 = gpt2.init(small, torch.Generator(device=device).manual_seed(3), device)
+    try:
+        with torch.inference_mode():
+            m16(tokens.to(device))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    _require(refused is not None and "head dim" in refused,
+             f"the tiny flash config (D = {small.head_dim}) ran on the card instead of raising")
+    _log("runtime", f"C2: tiny flash config widened to D = {cfg.head_dim} (S = 128) on the card: flash "
+                    f"launches {counts}, logits max |d| against the CPU {d:.3g}; at D = "
+                    f"{small.head_dim} it raises: {refused}")
+    return {"max_abs": d, "fwd_launches": counts["fwd"], "d16_refused": refused}
+
+
 def _ms(x):
     return "not measured" if x is None else f"{x:.3f} ms"
 
@@ -1052,7 +1384,7 @@ def _time_host(fn):
 
 
 def phase_llama(fa, smi):
-    """Phases 7-9 on one Mistral-7B model; the flash kernels' counts are
+    """Phases 8-10 on one Mistral-7B model; the flash kernels' counts are
     reset before and must read 0 after."""
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.serve.llm import LLMEngine
@@ -1117,9 +1449,15 @@ def main() -> int:
     phase_profile(lambda: step(state, {"tokens": tokens[0]}), "one train step", train["step_ms"], top=10,
                   expect={f"flash_{k}_wgmma_kernel": cfg.num_layers for k in ("fwd", "dq", "dkv")})
 
+    # The runtime path (this slice's): the same GPT-2-124M, from seed 0,
+    # through the port's runtime into a GPU-leased worker.
+    del model, state, step, x
+    torch.cuda.empty_cache()
+    runtime = phase_runtime(fa, gpt2, cfg, tokens[0], smi)
+
     # The serving path (Mistral-7B through the LLM engine), after the GPT-2
     # state is freed so that its peak memory is its own.
-    del model, state, step, x, tokens
+    del tokens
     torch.cuda.empty_cache()
     llama_out = phase_llama(fa, smi)
     _log("done", f"{time.perf_counter() - t_start:.1f} s in all")
@@ -1146,9 +1484,11 @@ def main() -> int:
         entry_of("dq", "flash_attention_dq", 97, bwd_err["dq"]),
         entry_of("dkv", "flash_attention_dkv", 142, bwd_err["dkv"]),
     ]
+    # The forward kernel's launches in the GPU-leased worker (the runtime path).
+    kernels[0]["runtime_launches"] = runtime["launches"]
     print(json.dumps({"forward_ms": fwd, "forward_path_fwd_launches": fwd_launches,
                       "train_step_ms": train["step_ms"], "train_tokens_per_s": train["tokens_per_s"],
-                      "head_backward_ms": head, **llama_out, "card": smi}))
+                      "head_backward_ms": head, "runtime": runtime, **llama_out, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,8 +12,11 @@ The reference's ``lax.scan`` over stacked layers is a Python loop over
 when gradients are taken, as the reference wraps it in ``jax.checkpoint``.
 ``attention_impl="flash"`` sends attention, forward and backward, through
 the port's CUDA flash kernels; "dense" is the plain path and the one a
-ragged ``S`` takes.  Mixture-of-Experts blocks and ring attention are not
-ported yet.
+ragged ``S`` takes.  The reference takes flash at any head dim; on the card
+the port's kernels take D = 64 or 128 in f32 or bf16 and raise for any other
+shape, so a flash config such as ``GPTConfig.tiny``'s (D = 16) runs only on
+the CPU, where attention is the kernels' plain version.  Mixture-of-Experts
+blocks and ring attention are not ported yet.
 """
 
 from __future__ import annotations

@@ -157,3 +157,21 @@ class TestDenseAttention:
         out = dense_attention(*[torch.from_numpy(a).bfloat16() for a in (q, k, v)])
         assert out.dtype == torch.bfloat16
         np.testing.assert_allclose(out.float().numpy(), ref, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("D,dtype,refused", [
+    (16, torch.bfloat16, True),
+    (32, torch.float32, True),
+    (64, torch.float16, True),
+    (64, torch.bfloat16, False),
+    (128, torch.float32, False),
+])
+def test_kernel_input_check_refuses_what_the_kernels_do_not_take(D, dtype, refused):
+    """The check a CUDA tensor passes before its kernel launches: head dim
+    64 or 128 in f32 or bf16, else a ValueError, never a quiet fallback."""
+    q = torch.zeros(2, 4, 128, D, dtype=dtype)
+    if refused:
+        with pytest.raises(ValueError, match="head dim|float32 or bfloat16"):
+            tfa._check_kernel_inputs(q, q, q)
+    else:
+        tfa._check_kernel_inputs(q, q, q)

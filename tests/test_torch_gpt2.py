@@ -5,7 +5,10 @@ cross to the port through ``gpt2_params_from_jax``; tokens and masks come
 from a numpy seed.  Biases and norm parameters are drawn too (``init`` sets
 them to 0 and 1), so that their layout is checked as well.  The JAX side
 runs jitted, flash attention as its Pallas kernel in interpret mode; the
-port's side runs the kernel's plain version (both on the CPU).
+port's side runs the kernel's plain version (both on the CPU).  The tiny
+config's head dim is 16, which only the plain version takes; the ``d64``
+cases widen it to 256 wide and 4 heads, the head dim the card's kernels
+take, so that the flash branch is certified at a shape the card runs.
 
 Tolerances: f32 configs agree to summation order, so 1e-5.  In bf16 both
 sides round every product, activation and residual add to bf16, but the two
@@ -32,27 +35,33 @@ F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = {"logits": dict(atol=2e-2, rtol=2e-2), "loss": dict(atol=2e-3, rtol=0)}
 _JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
-# (impl, dtype) → outputs compared; each (impl, dtype) is one jitted JAX
+# Widths on top of the tiny config: "" is tiny itself (D = 16), "d64" the
+# head dim the card's kernels take.
+WIDTHS = {"": {}, "d64": dict(embed_dim=256, num_heads=4)}
+# (impl, dtype, widths) → outputs compared; each key is one jitted JAX
 # program.  Every attention path is compared with and without a mask and
 # with the chunked cross-entropy.
 CASES = {
-    ("flash", torch.float32): ("logits", "loss", "loss_mask_chunk"),
-    ("dense", torch.float32): ("logits", "loss_mask", "loss_chunk"),
-    ("flash", torch.bfloat16): ("logits", "loss_mask"),
+    ("flash", torch.float32, ""): ("logits", "loss", "loss_mask_chunk"),
+    ("dense", torch.float32, ""): ("logits", "loss_mask", "loss_chunk"),
+    ("flash", torch.bfloat16, ""): ("logits", "loss_mask"),
+    ("flash", torch.float32, "d64"): ("logits", "loss_mask"),
+    ("flash", torch.bfloat16, "d64"): ("logits", "loss"),
 }
 
 
-def _configs(dtype, **kw):
+def _configs(dtype, widths="", **kw):
     """The same tiny config in both packages."""
+    kw.update(WIDTHS[widths])
     return (
         jax_gpt2.GPTConfig.tiny(dtype=_JAX_DTYPE[dtype], **kw),
         gpt2.GPTConfig.tiny(dtype=dtype, **kw),
     )
 
 
-@pytest.fixture(scope="module")
-def np_params():
-    shapes = jax.eval_shape(lambda: jax_gpt2.init(jax.random.key(0), jax_gpt2.GPTConfig.tiny()))
+def _draw_params(widths=""):
+    jcfg = jax_gpt2.GPTConfig.tiny(**WIDTHS[widths])
+    shapes = jax.eval_shape(lambda: jax_gpt2.init(jax.random.key(0), jcfg))
     rng = np.random.default_rng(0)
 
     def draw(path, s):
@@ -60,6 +69,24 @@ def np_params():
         return (base + rng.standard_normal(s.shape) * 0.02).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+@pytest.fixture(scope="module")
+def np_params():
+    return _draw_params()
+
+
+@pytest.fixture(scope="module")
+def params_of(np_params):
+    """widths → the numpy params drawn for them."""
+    cache = {"": np_params}
+
+    def get(widths):
+        if widths not in cache:
+            cache[widths] = _draw_params(widths)
+        return cache[widths]
+
+    return get
 
 
 @pytest.fixture(scope="module")
@@ -79,17 +106,18 @@ def _loss_inputs(output, tokens, mask):
 
 
 @pytest.fixture(scope="module")
-def jax_refs(np_params, batch):
+def jax_refs(params_of, batch):
     cache = {}
 
-    def get(impl, dtype):
-        if (impl, dtype) not in cache:
-            jcfg, _ = _configs(dtype, attention_impl=impl)
+    def get(impl, dtype, widths):
+        key = (impl, dtype, widths)
+        if key not in cache:
+            jcfg, _ = _configs(dtype, widths, attention_impl=impl)
             chunked = dataclasses.replace(jcfg, xent_chunk=32)
 
             def program(params, tokens, mask):
                 out = {}
-                for name in CASES[(impl, dtype)]:
+                for name in CASES[key]:
                     if name == "logits":
                         out[name] = jax_gpt2.forward(params, tokens[:, :-1], jcfg)
                     else:
@@ -97,10 +125,10 @@ def jax_refs(np_params, batch):
                         out[name] = jax_gpt2.loss_fn(params, b, chunked if chunk else jcfg)
                 return out
 
-            cache[(impl, dtype)] = jax.tree.map(
-                np.asarray, jax.jit(program)(np_params, *batch)
+            cache[key] = jax.tree.map(
+                np.asarray, jax.jit(program)(params_of(widths), *batch)
             )
-        return cache[(impl, dtype)]
+        return cache[key]
 
     return get
 
@@ -109,14 +137,16 @@ def _port(np_params, config):
     return gpt2_params_from_jax(np_params, config, device="cpu")
 
 
-@pytest.mark.parametrize("impl,dtype,output", [
-    pytest.param(impl, dtype, output, id=f"{impl}-{str(dtype)[6:]}-{output}")
-    for (impl, dtype), outs in CASES.items() for output in outs
+@pytest.mark.parametrize("impl,dtype,widths,output", [
+    pytest.param(impl, dtype, widths, output,
+                 id="-".join(filter(None, (impl, widths, str(dtype)[6:], output))))
+    for (impl, dtype, widths), outs in CASES.items() for output in outs
 ])
-def test_model_matches_jax(np_params, batch, jax_refs, impl, dtype, output):
-    ref = jax_refs(impl, dtype)[output]
+def test_model_matches_jax(params_of, batch, jax_refs, impl, dtype, widths, output):
+    ref = jax_refs(impl, dtype, widths)[output]
+    np_params = params_of(widths)
     tokens, mask = batch
-    _, cfg = _configs(dtype, attention_impl=impl)
+    _, cfg = _configs(dtype, widths, attention_impl=impl)
     with torch.inference_mode():
         if output == "logits":
             out = _port(np_params, cfg)(torch.from_numpy(tokens[:, :-1]).long())
@@ -213,3 +243,31 @@ class TestConfig:
         cfg = gpt2.GPTConfig.tiny(embed_dim=32)
         with pytest.raises(ValueError, match="shape"):
             gpt2_params_from_jax(np_params, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("embed_dim,heads,dtype", [
+    (64, 4, torch.float32),      # the tiny config: D = 16
+    (256, 4, torch.float32),     # D = 64
+    (256, 2, torch.bfloat16),    # D = 128
+    (128, 4, torch.bfloat16),    # D = 32
+])
+def test_flash_config_calls_the_flash_wrapper_at_any_head_dim(monkeypatch, embed_dim, heads, dtype):
+    """A flash config sends every layer's attention through
+    ``flash_attention_bhsd`` whatever its head dim: the model never routes
+    a shape the kernels refuse to dense attention.  On the CPU the wrapper
+    runs its plain version; on the card it raises for D not in (64, 128)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt2.GPTConfig.tiny(attention_impl="flash", embed_dim=embed_dim, num_heads=heads, dtype=dtype)
+    calls = []
+
+    def counted(q, k, v, scale=None):
+        calls.append(tuple(q.shape))
+        return fa.flash_attention_bhsd(q, k, v, scale)
+
+    monkeypatch.setattr(gpt2, "flash_attention_bhsd", counted)
+    model = gpt2.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with torch.inference_mode():
+        out = model(torch.randint(0, 256, (2, 128), generator=torch.Generator().manual_seed(1)))
+    assert torch.isfinite(out).all()
+    assert calls == [(2, heads, 128, cfg.head_dim)] * cfg.num_layers

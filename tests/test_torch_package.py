@@ -3,6 +3,10 @@ of JAX or of the JAX package, and its entry points do not fall back to the
 CPU when no CUDA device is present."""
 
 import ast
+import os
+import re
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -30,9 +34,60 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+# A module path of the reference inside a string: ``"-m", "ray_tpu.core.gcs"``
+# would start the reference's processes, which no import walk sees.
+_REFERENCE_MODULE = re.compile(r"(?<![\w/.])ray_tpu\.[A-Za-z_]")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_reference_module_strings(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [
+        (node.lineno, node.value[:80])
+        for node in ast.walk(tree)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str)
+        and _REFERENCE_MODULE.search(node.value)
+    ]
+    assert not bad, f"{path.name} names reference modules in strings: {bad}"
+
+
+CONTROL_PLANE = sorted(
+    p for d in ("common", "_native", "accelerators")
+    for p in (REPO / "ray_tpu_torch" / d).glob("*.py")
+) + [REPO / "ray_tpu_torch" / "core" / f for f in ("gcs.py", "raylet.py", "node.py")]
+
+
+@pytest.mark.parametrize("path", CONTROL_PLANE, ids=lambda p: str(p.relative_to(REPO)))
+def test_control_plane_imports_no_torch(path):
+    """The GCS, the raylet and what they import stay free of torch at every
+    level, function bodies included: torch enters a process only through
+    user code, the serializer's ``sys.modules`` lookup and a worker's GPU
+    binding."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [m for m in names if m.split(".")[0] in ("torch", "jax", "jaxlib")]
+
+
+def test_control_plane_import_loads_no_torch_or_jax():
+    code = ("import sys, ray_tpu_torch, ray_tpu_torch.core.gcs, ray_tpu_torch.core.raylet; "
+            "print(sorted(m for m in ('torch', 'jax') if m in sys.modules))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"gpt2.py", "llama.py", "llm.py", "flash_attention.py", "chip_smoke.py"} <= names
+    runtime = {"api.py", "gcs.py", "raylet.py", "worker_main.py", "node.py", "runtime.py",
+               "serialization.py", "config.py", "resources.py", "store.py", "gpu.py",
+               "placement_group.py", "actor_pool.py"}
+    assert runtime <= names
+    assert (REPO / "ray_tpu_torch" / "_native" / "shm_store.cc").is_file()
+    assert not list((REPO / "ray_tpu_torch" / "_native").glob("*.so"))
 
 
 def test_entry_raises_without_cuda():

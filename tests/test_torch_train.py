@@ -7,7 +7,9 @@ near 1, biases near 0, all perturbed) and cross to the port through
 is one jitted JAX program, run once per module: ``jax.value_and_grad`` of
 ``loss_fn``, through the reference's Pallas backward kernels in interpret
 mode where attention is flash.  The port runs the plain versions of its
-kernels on the CPU.
+kernels on the CPU.  The tiny config's head dim is 16, which only the plain
+versions take; the ``d64`` cases widen it to 256 wide and 4 heads, the head
+dim the card's kernels take.
 
 Gradients are compared leaf by leaf, relative to each gradient's norm:
 |g_port - g_jax| / |g_jax|.
@@ -46,18 +48,23 @@ TOL = {
     torch.float32: {"loss": 1e-5, "grad": 1e-5},
     torch.bfloat16: {"loss": 2e-3, "grad": 3e-2},
 }
-# case → (attention_impl, dtype, xent_chunk, masked)
+# Widths on top of the tiny config: "" is tiny itself (D = 16), "d64" the
+# head dim the card's kernels take.
+WIDTHS = {"": {}, "d64": dict(embed_dim=256, num_heads=4)}
+# case → (attention_impl, dtype, xent_chunk, masked, widths)
 CASES = {
-    "flash-f32": ("flash", torch.float32, 0, False),
-    "dense-f32": ("dense", torch.float32, 0, False),
-    "flash-bf16": ("flash", torch.bfloat16, 0, False),
-    "chunked-xent-mask-f32": ("dense", torch.float32, 32, True),
+    "flash-f32": ("flash", torch.float32, 0, False, ""),
+    "dense-f32": ("dense", torch.float32, 0, False, ""),
+    "flash-bf16": ("flash", torch.bfloat16, 0, False, ""),
+    "chunked-xent-mask-f32": ("dense", torch.float32, 32, True, ""),
+    "flash-d64-f32": ("flash", torch.float32, 0, True, "d64"),
+    "flash-d64-bf16": ("flash", torch.bfloat16, 0, False, "d64"),
 }
 
 
-@pytest.fixture(scope="module")
-def np_params():
-    shapes = jax.eval_shape(lambda: jax_gpt2.init(jax.random.key(0), jax_gpt2.GPTConfig.tiny()))
+def _draw_params(widths=""):
+    jcfg = jax_gpt2.GPTConfig.tiny(**WIDTHS[widths])
+    shapes = jax.eval_shape(lambda: jax_gpt2.init(jax.random.key(0), jcfg))
     rng = np.random.default_rng(0)
 
     def draw(path, s):
@@ -68,6 +75,24 @@ def np_params():
 
 
 @pytest.fixture(scope="module")
+def np_params():
+    return _draw_params()
+
+
+@pytest.fixture(scope="module")
+def params_of(np_params):
+    """widths → the numpy params drawn for them."""
+    cache = {"": np_params}
+
+    def get(widths):
+        if widths not in cache:
+            cache[widths] = _draw_params(widths)
+        return cache[widths]
+
+    return get
+
+
+@pytest.fixture(scope="module")
 def batch():
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, 256, (2, 129), dtype=np.int32)
@@ -75,8 +100,8 @@ def batch():
     return tokens, mask
 
 
-def _configs(impl, dtype, chunk=0):
-    kw = dict(attention_impl=impl, xent_chunk=chunk)
+def _configs(impl, dtype, chunk=0, widths=""):
+    kw = dict(attention_impl=impl, xent_chunk=chunk, **WIDTHS[widths])
     return (jax_gpt2.GPTConfig.tiny(dtype=_JAX_DTYPE[dtype], **kw),
             gpt2.GPTConfig.tiny(dtype=dtype, **kw))
 
@@ -112,15 +137,15 @@ def _rel_err(a, b):
 
 
 @pytest.fixture(scope="module")
-def jax_grads(np_params, batch):
+def jax_grads(params_of, batch):
     cache = {}
 
     def get(case):
         if case not in cache:
-            impl, dtype, chunk, masked = CASES[case]
-            jcfg, _ = _configs(impl, dtype, chunk)
+            impl, dtype, chunk, masked, widths = CASES[case]
+            jcfg, _ = _configs(impl, dtype, chunk, widths)
             fn = jax.jit(jax.value_and_grad(lambda p, b: jax_gpt2.loss_fn(p, b, jcfg)))
-            loss, grads = fn(np_params, _batch(*batch, masked))
+            loss, grads = fn(params_of(widths), _batch(*batch, masked))
             cache[case] = float(loss), _flat_jax(jax.tree.map(np.asarray, grads))
         return cache[case]
 
@@ -135,11 +160,11 @@ def _port_loss_and_grads(np_params, cfg, b):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_loss_and_grads_match_jax(np_params, batch, jax_grads, case):
-    impl, dtype, chunk, masked = CASES[case]
-    _, cfg = _configs(impl, dtype, chunk)
+def test_loss_and_grads_match_jax(params_of, batch, jax_grads, case):
+    impl, dtype, chunk, masked, widths = CASES[case]
+    _, cfg = _configs(impl, dtype, chunk, widths)
     ref_loss, ref = jax_grads(case)
-    model, loss, grads = _port_loss_and_grads(np_params, cfg, _batch(*batch, masked))
+    model, loss, grads = _port_loss_and_grads(params_of(widths), cfg, _batch(*batch, masked))
     assert all(p.grad.dtype == torch.float32 for p in model.parameters())
     assert abs(loss - ref_loss) <= TOL[dtype]["loss"], (loss, ref_loss)
     assert set(grads) == set(ref)
