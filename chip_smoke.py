@@ -70,7 +70,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
      width: time to first token, gaps between tokens, tokens/s, a decode
      step's host and device time and idle share, a 512-token prefill, peak
      memory, beside the card's bounds.  The flash kernels' counts are reset
-     before phases 8-10 and must read 0 after: Llama attention is plain.
+     before phases 8-10 and must read 0 after: Llama attention is plain;
+  11. [deploy]: [serve]'s model is freed, the port's runtime starts with
+     init(num_cpus=4) and an object store sized for Mistral-7B's state dict
+     (the size of /dev/shm is printed first), and serve.run deploys
+     LlamaDeployment with ray_actor_options={"num_gpus": 1}, its weights
+     drawn on the replica's card from [serve]'s seed: the replica's weights
+     must have [serve]'s checksum, it must see one card and load no JAX,
+     and the controller no torch.  [serve]'s 24 requests are replayed
+     through handle.options(method_name="generate", stream=True) and every
+     request must get [serve]'s tokens, request by request.  Prints the
+     time to serve.run ready and its parts, time to first token, token
+     gaps, tokens/s and the replica's peak memory beside [serve]'s;
+  12. [push]: weights from another seed, their greedy tokens for 3 prompts
+     computed in process, then a CPU bf16 state dict put into the store and
+     pushed with push_deployment_weights while 128-token streams run back
+     to back through the handle: every stream must end whole, one must span
+     the swap, the 3 prompts must give the driver's tokens and the
+     replica's checksum the state dict's.  Prints the push's bytes and its
+     put, get and apply with GB/s, and the replica's peak memory.  If
+     /dev/shm cannot hold the state dict, [push] runs on a second
+     deployment cut to the largest depth that fits, and says so.  The
+     flash kernels' counts read 0 over both phases, in the driver and in
+     the replica; after shutdown() no process of the driver remains.
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches on the training path (and the forward kernel's in the
 runtime's GPU worker, "runtime_launches"), error against its plain version,
@@ -83,6 +105,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -930,6 +953,48 @@ def _prefill_bound(llama, cfg, S):
     return (*_bound(nbytes, flops), nbytes, flops)
 
 
+def _serve_traffic(vocab_size):
+    """[serve]'s requests, also replayed by [deploy]: the generator (which
+    [serve] goes on drawing from), prompt lengths, new-token counts, prompts
+    and each request's delay from the start."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    lens = np.clip(rng.lognormal(np.log(200), 0.6, SERVE_REQUESTS), 64, 512).astype(int)
+    new = rng.integers(32, 129, SERVE_REQUESTS)
+    prompts = [rng.integers(0, vocab_size, n).tolist() for n in lens]
+    delays = [0.0 if i < SERVE_REQUESTS // 2 else SERVE_WAVE_GAP_S for i in range(SERVE_REQUESTS)]
+    return rng, lens, new, prompts, delays
+
+
+def _stream_stats(records, wall, vocab_size):
+    """What users of a streaming request see, from ``(index, submit time,
+    token times, tokens, max_new)`` records; every request must have its
+    full count of tokens in the vocabulary.  Returns the figures and the
+    tokens by request index."""
+    for _, _, times, toks, max_new in records:
+        _require(len(toks) == max_new and all(0 <= t < vocab_size for t in toks),
+                 f"a request got {len(toks)} tokens of {max_new}")
+    ttft = [(times[0] - submit) * 1e3 for _, submit, times, _, _ in records]
+    gaps = [(b - a) * 1e3 for _, _, times, _, _ in records for a, b in zip(times, times[1:])]
+    n_out = sum(len(toks) for _, _, _, toks, _ in records)
+    n_decode = n_out - len(records)
+    by_req = sorted(records)
+    st = dict(wall_s=wall, output_tokens=n_out, decode_tokens=n_decode,
+              ttft_ms_by_request=[round((times[0] - submit) * 1e3, 1) for _, submit, times, _, _ in by_req],
+              end_ms_by_request=[round((times[-1] - submit) * 1e3, 1) for _, submit, times, _, _ in by_req],
+              output_tokens_per_s=n_out / wall, decode_tokens_per_s=n_decode / wall,
+              ttft_ms_median=_pct(ttft, 0.5), ttft_ms_p90=_pct(ttft, 0.9), ttft_ms_max=max(ttft),
+              gap_ms_median=_pct(gaps, 0.5), gap_ms_p90=_pct(gaps, 0.9), gap_ms_max=max(gaps))
+    return st, {i: toks for i, _, _, toks, _ in records}
+
+
+def _stream_line(st):
+    return (f"time to first token ms: median {st['ttft_ms_median']:.1f}, p90 {st['ttft_ms_p90']:.1f}, "
+            f"max {st['ttft_ms_max']:.1f}; gap between output tokens ms: median "
+            f"{st['gap_ms_median']:.2f}, p90 {st['gap_ms_p90']:.2f}, max {st['gap_ms_max']:.2f}")
+
+
 def phase_serve(llama, LLMEngine, model, smi):
     """SERVE_REQUESTS streaming requests in two waves through the engine at
     full width, timed per token on the host; then one decode step and one
@@ -940,11 +1005,7 @@ def phase_serve(llama, LLMEngine, model, smi):
 
     cfg, dev = model.config, model.tok_embed.device
     engine = LLMEngine(model, device=dev, **SERVE_ENGINE)
-    rng = np.random.default_rng(5)
-    lens = np.clip(rng.lognormal(np.log(200), 0.6, SERVE_REQUESTS), 64, 512).astype(int)
-    new = rng.integers(32, 129, SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
-    delays = [0.0 if i < SERVE_REQUESTS // 2 else SERVE_WAVE_GAP_S for i in range(SERVE_REQUESTS)]
+    rng, lens, new, prompts, delays = _serve_traffic(cfg.vocab_size)
     _log("serve", f"{SERVE_REQUESTS} requests, waves of {SERVE_REQUESTS // 2} at 0 and {SERVE_WAVE_GAP_S} s; "
                   f"prompt tokens (log-normal, median 200, sigma 0.6, clipped to [64, 512]): min {lens.min()} "
                   f"median {int(np.median(lens))} mean {lens.mean():.1f} max {lens.max()}; new tokens "
@@ -965,18 +1026,19 @@ def phase_serve(llama, LLMEngine, model, smi):
     engine._prefill = timed(engine._prefill, host["prefill"])
     engine._decode = timed(engine._decode, host["decode"])
 
-    async def one(prompt, max_new, delay, records):
+    async def one(i, prompt, max_new, delay, records):
         await asyncio.sleep(delay)
         submit, times, toks = time.perf_counter(), [], []
         async for tok in engine.stream(prompt, max_new):
             times.append(time.perf_counter())
             toks.append(tok)
-        records.append((submit, times, toks, max_new))
+        records.append((i, submit, times, toks, max_new))
 
     async def run():
         records = []
         t0 = time.perf_counter()
-        await asyncio.gather(*(one(p, int(n), d, records) for p, n, d in zip(prompts, new, delays)))
+        await asyncio.gather(*(one(i, p, int(n), d, records)
+                               for i, (p, n, d) in enumerate(zip(prompts, new, delays))))
         return time.perf_counter() - t0, records
 
     torch.cuda.synchronize()
@@ -984,13 +1046,8 @@ def phase_serve(llama, LLMEngine, model, smi):
     wall, records = asyncio.run(run())
     peak = torch.cuda.max_memory_allocated() / 2**30
     del engine._prefill, engine._decode
-    for submit, times, toks, max_new in records:
-        _require(len(toks) == max_new and all(0 <= t < cfg.vocab_size for t in toks),
-                 f"a request got {len(toks)} tokens of {max_new}")
-    ttft = [(times[0] - submit) * 1e3 for submit, times, _, _ in records]
-    gaps = [(b - a) * 1e3 for _, times, _, _ in records for a, b in zip(times, times[1:])]
-    n_out = sum(len(toks) for _, _, toks, _ in records)
-    n_decode = n_out - len(records)
+    st, req_tokens = _stream_stats(records, wall, cfg.vocab_size)
+    n_out, n_decode = st["output_tokens"], st["decode_tokens"]
     dec = host["decode"]
     dec_ms = _pct(dec, 0.5)
     _require(engine.admitted_total == SERVE_REQUESTS and engine.shed_total == 0,
@@ -998,9 +1055,7 @@ def phase_serve(llama, LLMEngine, model, smi):
     _log("serve", f"{smi}: {n_out} tokens in {wall:.3f} s: {n_out / wall:.1f} output tokens/s, "
                   f"{n_decode / wall:.1f} decode tokens/s; {len(dec)} decode steps, "
                   f"{n_decode / len(dec):.2f} rows active a step on average")
-    _log("serve", f"time to first token ms: median {_pct(ttft, 0.5):.1f}, p90 {_pct(ttft, 0.9):.1f}, "
-                  f"max {max(ttft):.1f}; gap between output tokens ms: median {_pct(gaps, 0.5):.2f}, "
-                  f"p90 {_pct(gaps, 0.9):.2f}, max {max(gaps):.2f}")
+    _log("serve", _stream_line(st))
     _log("serve", f"host ms per engine call: decode step median {dec_ms:.3f} (p10 "
                   f"{_pct(dec, 0.1):.3f}, p90 {_pct(dec, 0.9):.3f}); prefill median "
                   f"{_pct(host['prefill'], 0.5):.3f}, max {max(host['prefill']):.3f} over "
@@ -1046,13 +1101,11 @@ def phase_serve(llama, LLMEngine, model, smi):
     _log("serve", f"prefill of 512 tokens: host {pre_ms:.3f} ms (median of 5), device busy {_ms(pre_busy)}, "
                   f"bound {pre_bound[0]:.3f} ms ({pre_bound[1]}: {pre_bound[2] / 1e9:.2f} GB, "
                   f"{pre_bound[3] / 1e12:.2f} TFLOP)")
-    return dict(wall_s=wall, output_tokens=n_out, output_tokens_per_s=n_out / wall,
-                decode_tokens_per_s=n_decode / wall, ttft_ms_median=_pct(ttft, 0.5),
-                ttft_ms_max=max(ttft), gap_ms_median=_pct(gaps, 0.5), gap_ms_p90=_pct(gaps, 0.9),
-                decode_step_host_ms=step_ms, decode_step_busy_ms=busy, decode_step_bound_ms=step_bound[0],
-                decode_step_attention_ms=attn_ms, decode_step_attention_4608_slots_ms=aligned_ms,
-                engine_decode_step_ms_median=dec_ms, prefill_512_host_ms=pre_ms,
-                prefill_512_busy_ms=pre_busy, prefill_512_bound_ms=pre_bound[0], peak_gib=peak)
+    return dict(st, decode_step_host_ms=step_ms, decode_step_busy_ms=busy,
+                decode_step_bound_ms=step_bound[0], decode_step_attention_ms=attn_ms,
+                decode_step_attention_4608_slots_ms=aligned_ms, engine_decode_step_ms_median=dec_ms,
+                prefill_512_host_ms=pre_ms, prefill_512_busy_ms=pre_busy,
+                prefill_512_bound_ms=pre_bound[0], peak_gib=peak), req_tokens
 
 
 # The runtime phase: GPT-2-124M through the port's own runtime.
@@ -1371,8 +1424,360 @@ def phase_tiny_flash(fa, gpt2, device):
     return {"max_abs": d, "fwd_launches": counts["fwd"], "d16_refused": refused}
 
 
+# [deploy] and [push]: Mistral-7B served through serve.run and a handle from
+# a replica that holds a one-GPU lease, then new weights pushed into it.
+DEPLOY_CPUS = 4
+DEPLOY_SEED = 2  # [serve]'s weights: the replica holds the same bits
+PUSH_SEED = 3
+PUSH_PROMPT_LENS = (64, 200, 512)
+PUSH_NEW = 32
+PUSH_STREAM_NEW = 128
+STORE_MARGIN_BYTES = 1 << 30
+DEPLOY_DEVICE = "cuda"  # a CPU rehearsal of the two phases sets "cpu"
+
+
+def _seeded_llama(cfg, seed, device):
+    """The weights loader a replica runs: ``llama.init`` from a seeded
+    generator on the replica's card."""
+    from ray_tpu_torch.models import llama
+
+    return llama.init(cfg, torch.Generator(device=device).manual_seed(seed), device)
+
+
+def _checksum(state, chunk=1 << 24):
+    """A checksum of a state dict's bits: each tensor's elements as
+    integers, weighted by position, summed in int64 with wrap-around (so
+    any summation order gives the same value), over the sorted names; in
+    chunks, so that it needs little memory beside the weights."""
+    total = 0
+    for i, name in enumerate(sorted(state)):
+        t = state[name].detach().contiguous().reshape(-1)
+        bits = t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+        for off in range(0, bits.numel(), chunk):
+            b = bits[off:off + chunk].to(torch.int64)
+            w = torch.arange(off, off + b.numel(), device=t.device, dtype=torch.int64) * 2654435761 + (i + 1)
+            total = (total + int((b * w).sum())) % 2**64
+    return total
+
+
+def _replica_facts(inst):
+    """In the replica: its process, cards, flash launches, the engine's
+    construction and last update timings, its peak card memory and its
+    weights' checksum."""
+    facts = _worker_facts()
+    fa = sys.modules.get("ray_tpu_torch.ops.flash_attention")
+    dep = inst._callable
+    on_card = torch.cuda.is_available()
+    facts.update(
+        device_count=torch.cuda.device_count(),
+        device_name=torch.cuda.get_device_name(0) if on_card else None,
+        flash={} if fa is None else _counts(fa),
+        timings=dep.timings, last_update=dep.last_update,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+        checksum=_checksum(dep.engine.model.state_dict()),
+    )
+    return facts
+
+
+def _replica_reset_peak(inst):
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    return True
+
+
+def _control_facts(_inst):
+    """In a control actor (controller, proxy): its argv, card and whether
+    torch or JAX is loaded.  It names no torch global, so shipping it loads
+    none."""
+    with open("/proc/self/cmdline", "rb") as f:
+        argv = [a.decode() for a in f.read().split(b"\0") if a]
+    return {"argv": argv, "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "loaded": sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "ray_tpu"))}
+
+
+def _replicas(name):
+    """The live replica actors of deployment ``name`` of the default app."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+
+    return rt.get(get_or_create_controller().get_replica_actors.remote(name), timeout=30)
+
+
+def _replay(handle, prompts, new, delays):
+    """The requests through the handle, each streamed from its own thread
+    after its delay; the records ``_stream_stats`` reads and the wall time.
+    Each request is sent after the one before it, so that the replica
+    admits them in the order the in-process engine did (the order sets
+    which requests wait for a row).  A request's time to first token runs
+    from its delay, as in ``[serve]``, and so includes its wait behind the
+    sends before it."""
+    import threading
+
+    records, errors = [], []
+    sent = [threading.Event() for _ in prompts]
+    t0 = time.perf_counter()
+
+    def client(i):
+        try:
+            submit, times, toks = t0 + delays[i], [], []
+            time.sleep(max(0.0, submit - time.perf_counter()))
+            if i:
+                sent[i - 1].wait()
+            # off the io loop, remote() sends the request before it returns
+            stream = handle.options(method_name="generate", stream=True).remote(prompts[i], int(new[i]))
+            sent[i].set()
+            for tok in stream:
+                times.append(time.perf_counter())
+                toks.append(tok)
+            records.append((i, submit, times, toks, int(new[i])))
+        except Exception as e:  # noqa: BLE001 — reported below
+            sent[i].set()
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    _require(not errors and len(records) == len(prompts), f"requests failed: {errors}")
+    return records, time.perf_counter() - t0
+
+
+def _shm_bytes():
+    st = os.statvfs("/dev/shm")
+    return st.f_frsize * st.f_blocks, st.f_frsize * st.f_bavail
+
+
+def phase_serving_runtime(fa, llama, cfg, serve_out, serve_tokens, serve_sum, smi):
+    """[deploy] and [push] on one cluster of the port's runtime; the flash
+    kernels' counts are reset before and must read 0 after, in the driver
+    and in the replica; after shutdown() no process of the driver remains."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api as rt_api
+
+    from ray_tpu_torch.common.config import cfg as rt_cfg
+
+    # The store is sized so that the state dict stays below the fill at
+    # which the raylet starts spilling to disk and back (it would then wait
+    # on a restore): the spill's low mark of the arena, plus a margin.
+    nbytes = llama.num_params(cfg) * torch.finfo(cfg.param_dtype).bits // 8
+    shm_total, shm_free = _shm_bytes()
+    store = int(nbytes / rt_cfg.object_spill_low_frac) + 1 + STORE_MARGIN_BYTES
+    _log("deploy", f"/dev/shm: {shm_total / 1e9:.2f} GB, {shm_free / 1e9:.2f} GB free; the full "
+                   f"state dict is {nbytes / 1e9:.3f} GB: object store {store / 1e9:.2f} GB (spill "
+                   f"above {rt_cfg.object_spill_high_frac:.0%} full)")
+    _require(store <= shm_free * 0.9, f"/dev/shm has {shm_free / 1e9:.2f} GB free, too little for an "
+                                      f"object store of {store / 1e9:.2f} GB that holds the state dict")
+    _flash_counts_zero(fa)
+    rt.init(num_cpus=DEPLOY_CPUS, object_store_bytes=store, log_to_driver=False)
+    try:
+        out = {"deploy": phase_deploy(rt, fa, llama, cfg, serve_out, serve_tokens, serve_sum, smi)}
+        out["push"] = phase_push(rt, fa, llama, cfg, smi)
+    finally:
+        group = rt_api._node_group
+        rt.shutdown()
+    deadline = time.monotonic() + 15
+    while _descendants(os.getpid()) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = {p: _cmdline(p) for p in _descendants(os.getpid())}
+    _require(not left, f"processes left after shutdown(): {left}")
+    _require(group.gcs_proc.poll() is not None and group.raylet_proc.poll() is not None,
+             "the GCS or the raylet outlived shutdown()")
+    counts = _counts(fa)
+    _require(not any(counts.values()), f"[deploy]/[push] launched flash kernels in the driver: {counts}")
+    _log("push", f"shutdown(): no process of the driver remains; flash launches in the driver {counts}")
+    return out
+
+
+def _deploy(serve, llama, cfg, seed):
+    from ray_tpu_torch.serve.llm import LlamaDeployment
+
+    return serve.run(
+        LlamaDeployment.options(name="llm", ray_actor_options={"num_gpus": 1}).bind(
+            config=cfg, weights_loader=functools.partial(_seeded_llama, cfg, seed, DEPLOY_DEVICE),
+            device=DEPLOY_DEVICE, **SERVE_ENGINE),
+        route_prefix=None)
+
+
+def phase_deploy(rt, fa, llama, cfg, serve_out, serve_tokens, serve_sum, smi):
+    """[deploy]: Mistral-7B at full width and depth from a one-GPU replica
+    through serve.run; [serve]'s traffic replayed through the handle must
+    give [serve]'s tokens, request by request."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core.actor import get_actor
+    from ray_tpu_torch.serve.controller import CONTROLLER_NAME
+
+    t0 = time.perf_counter()
+    serve.start()
+    controller_s = time.perf_counter() - t0
+    t_call, t0 = time.time(), time.perf_counter()
+    handle = _deploy(serve, llama, cfg, DEPLOY_SEED)
+    ready_s = time.perf_counter() - t0
+    (replica,) = _replicas("llm")
+    facts = rt.get(replica._apply(_replica_facts), timeout=120)
+    build_peak = facts["peak_gib"]
+    rt.get(replica._apply(_replica_reset_peak), timeout=60)
+    _check_worker(facts, "replica")
+    _require(facts["visible"] == "0" and facts["device_count"] == 1,
+             f"the replica sees CUDA_VISIBLE_DEVICES={facts['visible']!r}, {facts['device_count']} card(s)")
+    _require(facts["checksum"] == serve_sum,
+             f"the replica's weights differ from [serve]'s: checksum {facts['checksum']} != {serve_sum}")
+    ctl = rt.get(get_actor(CONTROLLER_NAME)._apply(_control_facts), timeout=60)
+    _require(ctl["visible"] == "" and not ctl["loaded"] and "ray_tpu_torch.core.worker_main" in ctl["argv"],
+             f"the controller: CUDA_VISIBLE_DEVICES={ctl['visible']!r}, loaded {ctl['loaded']}")
+    tm = facts["timings"]
+    start_s = tm["start"] - t_call  # CUDA starts with torch's import: the lease binds it
+    _log("deploy", f"{smi}: controller up in {controller_s:.3f} s; serve.run ready in {ready_s:.3f} s: "
+                   f"replica lease, worker start, torch import and CUDA init {start_s:.3f} s, weights "
+                   f"built on the card {tm['weights_s']:.3f} s, "
+                   f"engine and cache {tm['engine_s']:.3f} s, the rest "
+                   f"{ready_s - start_s - tm['weights_s'] - tm['engine_s']:.3f} s")
+    _log("deploy", f"replica on {facts['device_name']} (CUDA_VISIBLE_DEVICES={facts['visible']!r}, pid "
+                   f"{facts['pid']}), loads {facts['foreign'] or 'no JAX'}; weights checksum equals "
+                   f"[serve]'s; the controller sees CUDA_VISIBLE_DEVICES='' and loads no torch; no "
+                   f"proxy is started (handles only)")
+
+    _, _, new, prompts, delays = _serve_traffic(cfg.vocab_size)
+    # The first request on a fresh replica pays its libraries' start
+    # (cuBLAS and the first kernels); [serve]'s engine ran in a process
+    # that had warmed them, so one short request goes first, timed apart.
+    t0 = time.perf_counter()
+    first = handle.options(method_name="generate", stream=True).remote(prompts[0][:64], 4)
+    warm = [time.perf_counter() - t0 for _ in first]
+    _log("deploy", f"first request on the fresh replica (64 tokens, 4 new): first token "
+                   f"{warm[0] * 1e3:.1f} ms, last {warm[-1] * 1e3:.1f} ms")
+    records, wall = _replay(handle, prompts, new, delays)
+    st, tokens = _stream_stats(records, wall, cfg.vocab_size)
+    differ = [i for i in range(SERVE_REQUESTS) if tokens[i] != serve_tokens[i]]
+    facts = rt.get(replica._apply(_replica_facts), timeout=120)
+    _log("deploy", f"{st['output_tokens']} tokens in {wall:.3f} s: {st['output_tokens_per_s']:.1f} output, "
+                   f"{st['decode_tokens_per_s']:.1f} decode tokens/s (in process [serve]: "
+                   f"{serve_out['output_tokens_per_s']:.1f}, {serve_out['decode_tokens_per_s']:.1f})")
+    _log("deploy", _stream_line(st))
+    _log("deploy", f"  [serve] in process: {_stream_line(serve_out)}")
+    _log("deploy", f"through the handle minus in process: time to first token median "
+                   f"{st['ttft_ms_median'] - serve_out['ttft_ms_median']:+.1f} ms, gap median "
+                   f"{st['gap_ms_median'] - serve_out['gap_ms_median']:+.2f} ms, p90 "
+                   f"{st['gap_ms_p90'] - serve_out['gap_ms_p90']:+.2f} ms; replica peak memory over the "
+                   f"requests {_gib(facts['peak_gib'])} (in process {_gib(serve_out['peak_gib'])}), over "
+                   f"its construction {_gib(build_peak)}")
+    _log("deploy", f"time to first token ms by request, in process: {serve_out['ttft_ms_by_request']}; "
+                   f"through the handle: {st['ttft_ms_by_request']}")
+    _log("deploy", f"time to the last token ms by request, in process: {serve_out['end_ms_by_request']}; "
+                   f"through the handle: {st['end_ms_by_request']}")
+    _require(not differ, f"requests {differ} got other tokens through the handle than in process")
+    _require(not any(facts["flash"].values()), f"the replica launched flash kernels: {facts['flash']}")
+    _log("deploy", f"all {SERVE_REQUESTS} requests: full counts, tokens equal to [serve]'s request by "
+                   f"request; flash launches in the replica {facts['flash'] or 'none (not loaded)'}")
+    return dict(st, first_request_ttft_ms=warm[0] * 1e3, ready_s=ready_s, controller_s=controller_s,
+                replica_start_s=start_s,
+                weights_build_s=tm["weights_s"], engine_s=tm["engine_s"], peak_gib=facts["peak_gib"],
+                build_peak_gib=build_peak)
+
+
+def phase_push(rt, fa, llama, cfg, smi):
+    """[push]: new weights from another seed into the served deployment
+    through push_deployment_weights while streams are in flight."""
+    import asyncio
+    import threading
+
+    import numpy as np
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    (replica,) = _replicas("llm")
+    handle = serve.get_deployment_handle("llm")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PUSH_PROMPT_LENS]
+    model = _seeded_llama(cfg, PUSH_SEED, DEPLOY_DEVICE)
+    engine = LLMEngine(model, device=DEPLOY_DEVICE, **SERVE_ENGINE)
+
+    async def run():
+        async def one(p):
+            return [t async for t in engine.stream(p, PUSH_NEW)]
+        return await asyncio.gather(*(one(p) for p in prompts))
+
+    want = asyncio.run(run())
+    want_sum = _checksum(model.state_dict())
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del engine, model
+    if DEPLOY_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    nbytes = sum(v.numel() * v.element_size() for v in state.values())
+    rt.get(replica._apply(_replica_reset_peak), timeout=60)
+    t0 = time.perf_counter()
+    ref = rt.put(state)
+    put_s = time.perf_counter() - t0
+    del state
+
+    # Streams run back to back from before the push until after it, so
+    # that one is in flight when the replica swaps its weights.
+    stop, streams = threading.Event(), []
+
+    def streamer():
+        while not stop.is_set():
+            rec = {"start": time.time(), "times": [], "error": None}
+            try:
+                for _ in handle.options(method_name="generate", stream=True).remote(prompts[0], PUSH_STREAM_NEW):
+                    rec["times"].append(time.time())
+            except Exception as e:  # noqa: BLE001 — checked below
+                rec["error"] = repr(e)
+            streams.append(rec)
+
+    th = threading.Thread(target=streamer)
+    th.start()
+    time.sleep(0.5)
+    t_call, t0 = time.time(), time.perf_counter()
+    n = serve.push_deployment_weights("llm", ref, timeout=900)
+    push_s = time.perf_counter() - t0
+    stop.set()
+    th.join(timeout=600)
+    del ref
+    facts = rt.get(replica._apply(_replica_facts), timeout=120)
+    u = facts["last_update"]
+    swap_at = u["start"] + u["apply_s"]
+    get_s = u["start"] - t_call
+    _require(n == 1 and u is not None, f"push_deployment_weights updated {n} replicas")
+    bad = [(len(r["times"]), r["error"]) for r in streams if len(r["times"]) != PUSH_STREAM_NEW or r["error"]]
+    spanned = [r for r in streams if r["times"] and r["times"][0] < swap_at < r["times"][-1]]
+    gaps = [(b - a) * 1e3 for r in streams for a, b in zip(r["times"], r["times"][1:])]
+    timeline = [(round(r["times"][0] - t_call, 3), round(r["times"][-1] - t_call, 3))
+                 for r in streams if r["times"]]
+    _log("push", f"seconds from the push call: update_weights entered {u['start'] - t_call:.3f}, the "
+                 f"swap {swap_at - t_call:.3f}, the push returned {push_s:.3f}; each stream's first and "
+                 f"last token {timeline}")
+    _require(not bad, f"streams in flight during the push ended short or failed: {bad}")
+    _require(spanned, "no stream was in flight when the replica swapped its weights")
+    got = [r.result(timeout_s=300) for r in
+           [handle.options(method_name="generate_all").remote(p, PUSH_NEW) for p in prompts]]
+    _require(facts["checksum"] == want_sum,
+             f"the replica's checksum {facts['checksum']} != the pushed state dict's {want_sum}")
+    _require(got == want, f"after the push the handle gives other tokens than the driver: "
+                          f"{[g == w for g, w in zip(got, want)]}")
+    _require(not any(facts["flash"].values()), f"the replica launched flash kernels: {facts['flash']}")
+    gb = nbytes / 1e9
+    _log("push", f"{smi}: {cfg.num_layers} layers, state dict {gb:.3f} GB (bf16, CPU): put in the driver "
+                 f"{put_s:.3f} s ({gb / put_s:.3f} GB/s); push_deployment_weights {push_s:.3f} s, of which "
+                 f"the call to the replica's update_weights (its get of the state dict) {get_s:.3f} s "
+                 f"({gb / get_s:.3f} GB/s) and the apply on the card {u['apply_s']:.3f} s "
+                 f"({gb / u['apply_s']:.3f} GB/s); replica peak memory across the swap "
+                 f"{_gib(facts['peak_gib'])}")
+    _log("push", f"{len(streams)} streams of {PUSH_STREAM_NEW} tokens ran through the push, all whole; "
+                 f"{len(spanned)} spanned the swap; token gap median {_pct(gaps, 0.5):.2f} ms, max "
+                 f"{max(gaps):.1f} ms; {len(prompts)} prompts ({PUSH_PROMPT_LENS} tokens, {PUSH_NEW} new) "
+                 f"give the driver's new tokens; the replica's checksum equals the pushed state dict's")
+    return {"layers": cfg.num_layers, "bytes": nbytes, "put_s": put_s, "push_s": push_s, "get_s": get_s,
+            "apply_s": u["apply_s"], "put_gb_s": gb / put_s, "get_gb_s": gb / get_s,
+            "apply_gb_s": gb / u["apply_s"], "peak_gib": facts["peak_gib"], "streams": len(streams),
+            "gap_ms_max": max(gaps)}
+
 def _ms(x):
     return "not measured" if x is None else f"{x:.3f} ms"
+
+
+def _gib(x):
+    return "not measured" if x is None else f"{x:.2f} GiB"
 
 
 def _time_host(fn):
@@ -1402,11 +1807,18 @@ def phase_llama(fa, smi):
               f"{PARITY_SHALLOW_LAYERS} layers": phase_llama_parity(
                   llama, _first_layers(llama, model, PARITY_SHALLOW_LAYERS), PARITY_SHALLOW_TOL)}
     phase_llama_rolling(llama, LLMEngine, "cuda")
-    serve = phase_serve(llama, LLMEngine, model, smi)
+    serve, serve_tokens = phase_serve(llama, LLMEngine, model, smi)
     counts = _counts(fa)
     _require(not any(counts.values()), f"the Llama paths launched flash kernels: {counts}")
     _log("done", f"llama phases {time.perf_counter() - t0:.1f} s; flash kernel launches on them: {counts}")
-    return {"llama_parity": parity, "serve": serve}
+    # [serve]'s model is freed before the replica builds its own copy.
+    serve_sum = _checksum(model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served = phase_serving_runtime(fa, llama, cfg, serve, serve_tokens, serve_sum, smi)
+    _log("done", f"[deploy] and [push] {time.perf_counter() - t0:.1f} s")
+    return {"llama_parity": parity, "serve": serve, **served}
 
 
 def main() -> int:

@@ -4,9 +4,11 @@ A package of its own beside ``ray_tpu``, which stays the reference: it
 imports torch and numpy, never jax and nothing of ``ray_tpu``.  Models live
 in ``ray_tpu_torch.models``, attention ops and their CUDA kernels in
 ``ray_tpu_torch.ops`` (sources under ``csrc/``, built with nvcc on first use,
-never at import), the training step in ``ray_tpu_torch.parallel``, the
-continuous-batching LLM engine in ``ray_tpu_torch.serve``.  Entry points
-run on CUDA unless the caller passes ``device="cpu"``.
+never at import), the training step in ``ray_tpu_torch.parallel``, serving in
+``ray_tpu_torch.serve`` (the reference's control plane on this runtime,
+the continuous-batching LLM engine and its deployment, the weight push)
+and the runtime collectives in ``ray_tpu_torch.util.collective``.  Entry
+points run on CUDA unless the caller passes ``device="cpu"``.
 
 The single-node runtime is the reference's, copied: ``init(num_gpus=...)``
 starts a GCS and a raylet, ``@remote`` tasks and actors run in worker

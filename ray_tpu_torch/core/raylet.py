@@ -33,7 +33,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Set
 
-from ray_tpu_torch._native.store import ShmStore, default_capacity
+from ray_tpu_torch._native.store import ObjectExistsError, ShmStore, default_capacity
 from ray_tpu_torch.common import faults
 from ray_tpu_torch.common.config import cfg
 from ray_tpu_torch.common.constants import session_root
@@ -48,6 +48,10 @@ logger = logging.getLogger(__name__)
 #: perturbed by seeded user code (and stays outside RT116's
 #: unseeded-global-RNG scope if the soak lint ever widens)
 _PULL_SHUFFLE_RNG = random.Random()
+
+#: Spill files are written and read in slices of this size (see
+#: ``Raylet._write_file`` and ``Raylet._read_into_store``)
+_IO_SLICE_BYTES = 64 << 20
 
 #: FaultPlan.delay_s's field default — a node.preempt plan that never set
 #: delay_s means "use the config drain deadline", not a 50 ms drain
@@ -462,10 +466,42 @@ class Raylet:
 
     @staticmethod
     def _write_file(path: str, data) -> None:
-        with open(path, "wb") as f:
-            f.write(data)  # bytes or a pinned memoryview — no extra copy
-            f.flush()
-            os.fsync(f.fileno())
+        # bytes or a pinned memoryview — no extra copy; in slices: while
+        # one write of many GB from the arena's mapping runs, the process
+        # can start no process and map no memory (on a 9p temp dir,
+        # seconds; spill_io_probe.py), and the event loop does both
+        view = memoryview(data).cast("B")
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        try:
+            off = 0
+            while off < len(view):
+                off += os.write(fd, view[off:off + _IO_SLICE_BYTES])
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+
+    @staticmethod
+    def _read_into_store(store, oid: bytes, path: str) -> int:
+        """Read a spill file straight into a reservation in the arena, in
+        slices, and seal it; returns its size.  Run on a worker thread: the
+        read syscalls copy without the GIL, so the event loop runs on while
+        many GB come back (a bytes copy of the object, or a copy of it into
+        the arena, would hold the GIL for seconds)."""
+        with open(path, "rb", buffering=0) as f:
+            size = os.fstat(f.fileno()).st_size
+            view = store.reserve(oid, size)
+            try:
+                off = 0
+                while off < size:
+                    got = f.readinto(view[off:off + _IO_SLICE_BYTES])
+                    if not got:
+                        raise OSError(f"spill file {path} ends at {off} of {size} bytes")
+                    off += got
+            except BaseException:
+                store.abort(oid)
+                raise
+        store.commit(oid)
+        return size
 
     def _drop_spill_file(self, oid: bytes) -> None:
         size = self._spilled.pop(oid, None)
@@ -481,34 +517,36 @@ class Raylet:
         disk; the arena copy is a cache until the object is freed)."""
         if oid not in self._spilled:
             return False
-        try:
-            data = await asyncio.to_thread(
-                lambda: open(self._spill_path(oid), "rb").read()
-            )
-        except OSError:
-            logger.exception("spill restore failed for %s", oid.hex()[:12])
-            return False
+        size = self._spilled[oid]
         placed = False
         for attempt in range(3):
             try:
-                self._store_put_new(oid, data)
+                await asyncio.to_thread(
+                    self._read_into_store, self.store, oid, self._spill_path(oid)
+                )
                 placed = True
                 break
+            except ObjectExistsError:
+                placed = True
+                break
+            except OSError:
+                logger.exception("spill restore failed for %s", oid.hex()[:12])
+                return False
             except Exception:
                 # arena full: make room (exact size first, then
                 # escalating; _maybe_spill clamps to capacity) — the
                 # pull path treats a failed restore as retryable, but
                 # succeeding here saves the caller a full round trip
                 freed = await self._maybe_spill(
-                    needed_bytes=len(data) * (attempt + 1),
-                    object_bytes=len(data),
+                    needed_bytes=size * (attempt + 1),
+                    object_bytes=size,
                 )
                 if not freed and attempt:
                     break
         if not placed:
             return False
         self._restore_count += 1
-        await self._announce(oid, len(data))
+        await self._announce(oid, size)
         return True
 
     def _read_spilled(self, oid: bytes, offset: int = 0,

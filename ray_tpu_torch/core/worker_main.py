@@ -664,9 +664,23 @@ class WorkerServer:
         """Re-join one group after a drain migration: publish the reform
         event so the surviving ranks enter the same-world replacement
         reform, then join under the predecessor's rank."""
-        raise NotImplementedError(
-            "collective groups need ray_tpu_torch.util.collective, which "
-            "is not ported yet (ROADMAP A2)"
+        from ray_tpu_torch.util.collective import collective as col_mod
+
+        mgr = col_mod._manager()
+        self.rt.publish(
+            col_mod.reform_channel(g["group_name"]),
+            {
+                "world_size": g["world_size"],
+                "origin_rank": g["rank"],
+            },
+        )
+        await mgr.reform_group(
+            g["group_name"], g["world_size"], rank=g["rank"],
+            backend_name=g.get("backend"),
+        )
+        logger.info(
+            "re-joined collective group %r as rank %d after migration",
+            g["group_name"], g["rank"],
         )
 
     async def handle_checkpoint_actor(self, p) -> dict:
@@ -682,9 +696,11 @@ class WorkerServer:
         put and announced urgently so the restoring worker's pull finds
         the location — and only the 16-byte object id crosses the
         control plane; the GCS frees the object after the restore."""
-        # no collective group can exist until util/collective is ported
-        # (ROADMAP A2), so a capture reports none
         groups = []
+        if "ray_tpu_torch.util.collective.collective" in sys.modules:
+            from ray_tpu_torch.util.collective import collective as col_mod
+
+            groups = col_mod.local_group_memberships()
         inst = self.actor_instance
         ck = getattr(inst, "__rt_checkpoint__", None) if inst else None
         restore = getattr(inst, "__rt_restore__", None) if inst else None
@@ -733,9 +749,17 @@ class WorkerServer:
                 await asyncio.sleep(0.02)
             state = await loop.run_in_executor(self._exec, ck)
             # the capture now owns re-delivery: stop this doomed
-            # process's p2p channel streaming: the channels of
-            # util/collective arrive with ROADMAP A2, and until then no
-            # process has one to tear down.
+            # process's p2p channel streaming (in-flight sends are
+            # cancelled, reform listeners deregistered) — the restored
+            # twin's checkpointed outbox re-offers on reform, and
+            # without the teardown the old incarnation keeps pushing
+            # chunks it already captured, burning the drain window on
+            # dead traffic.  Ordered AFTER the capture (the outbox
+            # snapshot must precede the cancel) and BEFORE serialize.
+            if "ray_tpu_torch.util.collective.channel" in sys.modules:
+                from ray_tpu_torch.util.collective import channel as channel_mod
+
+                channel_mod.drain_teardown()
             s = self.rt.serialize(state)
             # a previous capture's object-plane blob was never consumed
             # (its reply was lost, or that drain fell over before the

@@ -14,8 +14,10 @@ Prefill and decode run in a worker thread (``asyncio.to_thread``), so the
 event loop keeps accepting requests and delivering tokens meanwhile; the
 model functions enter ``torch.inference_mode`` in that thread.
 
-``LlamaDeployment`` and the weight push (``serve/weights.py``) wait for the
-port of the runtime.
+``LlamaDeployment`` serves the engine from a replica actor (``serve.run``,
+a one-GPU lease per replica with ``ray_actor_options={"num_gpus": 1}``), and
+takes new weights through ``update_weights``, the method the weight push
+(``serve/weights.py``) calls.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import List, Optional
 
 import torch
 
+from ray_tpu_torch import serve
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.serve.traffic.config import RequestShedError, get_request_deadline
@@ -214,3 +217,92 @@ class LLMEngine:
                     self.slots[i] = None
             # let admissions and consumers run between steps
             await asyncio.sleep(0)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _model_from_state(config: llama.LlamaConfig, state, device) -> llama.Llama:
+    """A new :class:`Llama` on ``device`` holding the state dict ``state``.
+    Keys and shapes must match the model's exactly (``load_state_dict``
+    raises otherwise)."""
+    model = llama.Llama(config, device)
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+@serve.deployment
+class LlamaDeployment:
+    """Decode replica: tiny-config by default, or real weights via a
+    ``weights_ref`` (object-store ref to a state dict) / ``weights_loader``
+    callable (returning a :class:`Llama` on ``device``, built where it
+    runs: on the replica's card, with no copy through the host).
+
+    ``device`` defaults to ``"cuda"``: a replica without a GPU lease has no
+    card and raises here, at construction; it never runs on the CPU unless
+    asked to.  Without weights it draws them with ``llama.init`` from a
+    ``torch.Generator`` seeded with ``seed`` (other numbers than the
+    reference's ``jax.random``)."""
+
+    def __init__(self, config=None, weights_ref=None, weights_loader=None,
+                 max_slots: int = 4, max_len: int = 256,
+                 max_prompt_len: Optional[int] = None, seed: int = 0,
+                 device="cuda"):
+        # what the construction cost: its start (time.time(), to line up
+        # with the caller's clock) and the seconds of each part
+        self.timings = {"start": time.time()}
+        t1 = time.perf_counter()
+        self.config = config or llama.LlamaConfig.tiny()
+        device = resolve_device(device)
+        if weights_ref is not None:
+            import ray_tpu_torch
+
+            model = _model_from_state(self.config, ray_tpu_torch.get(weights_ref), device)
+        elif weights_loader is not None:
+            model = weights_loader()
+        else:
+            model = llama.init(self.config, torch.Generator(device=device).manual_seed(seed), device)
+        _sync(device)
+        t2 = time.perf_counter()
+        self.engine = LLMEngine(
+            model, max_slots=max_slots, max_len=max_len,
+            max_prompt_len=max_prompt_len, device=device,
+        )
+        _sync(device)
+        self.timings.update(weights_s=t2 - t1, engine_s=time.perf_counter() - t2)
+        # what the last update_weights cost, in the same terms
+        self.last_update = None
+
+    def update_weights(self, state_dict) -> bool:
+        """Replace the served weights by ``state_dict`` — the serve
+        weight-push path (``serve.weights.push_weights``).
+
+        A new model is built on the engine's device and swapped in whole:
+        the engine reads ``engine.model`` once per prefill or decode step,
+        so a step in flight finishes on the old weights and the next one
+        runs on the new; no step mixes the two.  (Copying into the live
+        tensors would race the step the engine's thread is running.)  For
+        a moment both copies are on the card.  A state dict whose keys or
+        shapes do not match raises, and the old weights stay.  The KV
+        cache is content, not weights, so it stays valid."""
+        t0, start = time.perf_counter(), time.time()
+        model = _model_from_state(self.config, state_dict, self.engine.device)
+        _sync(self.engine.device)
+        self.engine.model = model
+        self.last_update = {"start": start, "apply_s": time.perf_counter() - t0}
+        return True
+
+    async def generate(self, prompt: List[int], max_new_tokens: int = 16):
+        """Streaming generation (use handle.options(stream=True)): the
+        generated token ids as Python ints."""
+        async for tok in self.engine.stream(prompt, max_new_tokens):
+            yield tok
+
+    async def generate_all(self, prompt: List[int],
+                           max_new_tokens: int = 16) -> List[int]:
+        """Unary convenience: the full generated id list."""
+        return [
+            tok async for tok in self.engine.stream(prompt, max_new_tokens)
+        ]

@@ -52,14 +52,17 @@ def test_no_reference_module_strings(path):
 
 
 CONTROL_PLANE = sorted(
-    p for d in ("common", "_native", "accelerators")
+    p for d in ("common", "_native", "accelerators", "util/collective", "serve", "serve/traffic")
     for p in (REPO / "ray_tpu_torch" / d).glob("*.py")
+    if p.relative_to(REPO).as_posix() != "ray_tpu_torch/serve/llm.py"
 ) + [REPO / "ray_tpu_torch" / "core" / f for f in ("gcs.py", "raylet.py", "node.py")]
 
 
 @pytest.mark.parametrize("path", CONTROL_PLANE, ids=lambda p: str(p.relative_to(REPO)))
 def test_control_plane_imports_no_torch(path):
-    """The GCS, the raylet and what they import stay free of torch at every
+    """The GCS, the raylet, the runtime collectives, the serve control
+    plane (controller, proxies, handles, replicas; all of serve but the LLM
+    engine's ``llm.py``) and what they import stay free of torch at every
     level, function bodies included: torch enters a process only through
     user code, the serializer's ``sys.modules`` lookup and a worker's GPU
     binding."""
@@ -79,6 +82,20 @@ def test_control_plane_import_loads_no_torch_or_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_serve_and_collective_import_loads_no_torch_or_jax():
+    """Serve's control actors run on leases without a card: importing the
+    serve package and the runtime collectives must not load torch."""
+    code = ("import sys, ray_tpu_torch.serve, ray_tpu_torch.serve.controller, "
+            "ray_tpu_torch.serve.proxy, ray_tpu_torch.serve.grpc_proxy, "
+            "ray_tpu_torch.util.collective, ray_tpu_torch.util.collective.rpc_backend; "
+            "print(sorted(m for m in ('torch', 'jax', 'aiohttp', 'grpc') if m in sys.modules))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"gpt2.py", "llama.py", "llm.py", "flash_attention.py", "chip_smoke.py"} <= names
@@ -86,7 +103,13 @@ def test_port_files_found():
                "serialization.py", "config.py", "resources.py", "store.py", "gpu.py",
                "placement_group.py", "actor_pool.py"}
     assert runtime <= names
+    serving = {"controller.py", "handle.py", "proxy.py", "replica.py", "weights.py",
+               "admission.py", "scheduler.py", "collective.py", "rpc_backend.py",
+               "quantize.py", "quant.py"}
+    assert serving <= names
+    assert not (REPO / "ray_tpu_torch" / "util" / "collective" / "jax_backend.py").exists()
     assert (REPO / "ray_tpu_torch" / "_native" / "shm_store.cc").is_file()
+    assert (REPO / "ray_tpu_torch" / "_native" / "quant.cc").is_file()
     assert not list((REPO / "ray_tpu_torch" / "_native").glob("*.so"))
 
 

@@ -155,6 +155,41 @@ def test_session_root_follows_tmpdir(tmp_path):
     assert all(p.startswith(os.path.join(str(tmp_path), "ray_tpu_torch", "")) for p in paths), paths
 
 
+def test_spill_file_round_trips_in_slices(monkeypatch, tmp_path):
+    """The raylet writes a spill file and reads it back into the arena in
+    slices, so that a transfer of many GB lets its event loop run; an
+    object whose size ends inside, on and past a slice's edge comes back
+    whole, and a truncated file fails and leaves no entry."""
+    from ray_tpu_torch._native import store as port_store
+    from ray_tpu_torch.core import raylet as port_raylet
+
+    monkeypatch.setattr(port_raylet, "_IO_SLICE_BYTES", 1000)
+    store = port_store.ShmStore(f"/dev/shm/rt_test_spill_{os.getpid()}", 64 << 20, create=True)
+    try:
+        rng = np.random.default_rng(0)
+        for i, n in enumerate((1, 999, 1000, 2501, 4000)):
+            data = rng.integers(0, 256, n, dtype=np.uint8)
+            path = str(tmp_path / f"{i}.obj")
+            port_raylet.Raylet._write_file(path, memoryview(data))
+            oid = bytes([i + 1] * 16)
+            assert port_raylet.Raylet._read_into_store(store, oid, path) == n
+            pin = store.get(oid)
+            try:
+                assert bytes(pin.view) == data.tobytes()
+            finally:
+                pin.release()
+        path = str(tmp_path / "short.obj")
+        port_raylet.Raylet._write_file(path, b"x" * 2500)
+        monkeypatch.setattr(os, "fstat", lambda fd, _f=os.fstat: os.stat_result(
+            (*_f(fd)[:6], 3000, *_f(fd)[7:])))
+        with pytest.raises(OSError, match="ends at 2500 of 3000"):
+            port_raylet.Raylet._read_into_store(store, bytes([99] * 16), path)
+        monkeypatch.undo()
+        assert not store.contains(bytes([99] * 16))
+    finally:
+        store.destroy()
+
+
 def _port_children():
     return [p for p in psutil.Process().children(recursive=True)
             if any("ray_tpu_torch" in a for a in _cmdline(p))]
