@@ -31,7 +31,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      read just after; every forward must launch it once per layer.  The
      same weights with dense attention must give the same logits within a
      bf16 tolerance.  Then the forward is timed at (8, 1024) and profiled;
-  6. the training path (this slice's main path): GPT-2-124M at B=8, S=1024,
+  6. the training path: GPT-2-124M at B=8, S=1024,
      bf16, flash, remat off, AdamW(3e-4, weight decay 0.1), the same tokens
      every step, 3 warm-up and 10 timed steps through compile_train_step.
      Every kernel's launch count is reset just before and read just after;
@@ -40,7 +40,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      attention, from the same weights, must agree within a bf16 tolerance.
      The lm-head's backward is timed, and one step is profiled by kernel
      group;
-  7. [runtime] (this slice's path): the port's runtime starts with
+  7. [runtime]: the port's runtime starts with
      init(num_cpus=4) and must detect the card (cluster GPU == device
      count); the seed-0 GPT-2-124M state dict (CPU copies, f32) is put
      into its object store, and a num_gpus=1 task gets it, builds the model
@@ -93,9 +93,53 @@ Phases, each of which raises (and so exits non-zero) on failure:
      deployment cut to the largest depth that fits, and says so.  The
      flash kernels' counts read 0 over both phases, in the driver and in
      the replica; after shutdown() no process of the driver remains.
+Phases 13-15 run after phase 7 and before phase 8, so that each phase's
+peak memory is its own:
+  13. [fit] (this slice's main path): the port's runtime starts and
+     TorchTrainer.fit() runs phase 6's training through the Train library,
+     from a num_gpus=1 worker over an NCCL process group of one
+     (ScalingConfig(num_workers=1, use_gpu=True),
+     TorchConfig(init_distributed=True), FailureConfig(max_failures=1)).
+     The worker's loop builds GPT-2-124M from phase 6's seed on its card,
+     runs phase 6's 13 steps on phase 6's batch with the flash kernels'
+     counts reset before each step and read after it, reports each step's
+     loss, grad norm, step ms and launches, reports a checkpoint (model and
+     AdamW state) after step 6, and on its first attempt kills its own
+     process once step 9's report returns (the driver asks for it only
+     after it has received step 8's).  The gang restarts from the
+     checkpoint and finishes.  fit() must end without an error; the worker must see one
+     card and load no JAX; the group must be NCCL at world size 1; every
+     reported loss must equal phase 6's of the same step bit for bit (the
+     resumed steps 7-12 included); each kernel must launch once a layer a
+     step; after shutdown() no process of the driver may remain.  Prints
+     the time to the first reported step and its parts, the time from the
+     kill to the first resumed step and its parts, the worker's step ms
+     beside phase 6's, and the checkpoint's bytes, write, persist and
+     restore with GB/s and the storage path's filesystem;
+  14. [moe]: GPT-2-124M with 8 experts (capacity factor 1.25, aux
+     coefficient 0.01) at B=8, S=1024, bf16, flash: the _moe_mlp of the
+     layer that drops the most tokens at init, on the features that reached
+     it in the forward over phase 6's batch, on the card in f32 against the
+     CPU's (experts and capacity slots equal for every token clear of a
+     near-tie by MOE_MARGIN, outputs within MOE_TOL, tokens past capacity
+     among those compared), then 3 + 10 training steps: the first loss about ln(vocab)
+     plus 0.01 times the aux loss, the loss falling, each kernel launched
+     once a layer a step.  Prints the aux loss at init, the share of tokens
+     past capacity, step ms, tokens/s, the share of the bf16 peak, peak
+     memory and one step's device time by kernel group;
+  15. [vit]: ViT-B/16 (224x224x3 images, 196 patch tokens, 1024 classes;
+     bf16 compute, f32 params, remat): logits at B=2 in f32 on the card
+     against the CPU's from the same weights (VIT_TOL); one step's
+     gradients at B=64 equal with remat on and off; 3 + 10 steps at B=64
+     with AdamW on one repeated batch: the first loss about ln(1024), the
+     loss falling.  Prints images/s, step ms, FLOPs an image, the share of
+     the bf16 peak, peak memory and one step's device time by kernel
+     group; the flash kernels' counts must read 0.
 The line before the last is a JSON object {"kernels": [...]} with each
-kernel's launches on the training path (and the forward kernel's in the
-runtime's GPU worker, "runtime_launches"), error against its plain version,
+kernel's launches on the training path (the forward kernel's in the
+runtime's GPU worker, "runtime_launches"; each kernel's in the trainer's
+worker, "fit_launches", and in [moe], "moe_launches"), error against its
+plain version,
 time, the plain version's time, the library call's time and the card's
 bound; the last line is {"ok": true, "device": {...}}.  With no CUDA device
 it prints no result and exits 2.
@@ -1268,15 +1312,7 @@ def phase_runtime(fa, gpt2, cfg, tokens, smi, device="cuda"):
     try:
         out = _runtime_checks(rt, rt_api, fa, gpt2, cfg, tokens, smi, device)
     finally:
-        group = rt_api._node_group
-        rt.shutdown()
-    deadline = time.monotonic() + 15
-    while _descendants(os.getpid()) and time.monotonic() < deadline:
-        time.sleep(0.1)
-    left = {p: _cmdline(p) for p in _descendants(os.getpid())}
-    _require(not left, f"processes left after shutdown(): {left}")
-    _require(group.gcs_proc.poll() is not None and group.raylet_proc.poll() is not None,
-             "the GCS or the raylet outlived shutdown()")
+        _shutdown_checked(rt, rt_api, "runtime")
     _log("runtime", f"shutdown(): no process of the driver remains; cluster start {start_s:.3f} s")
     out["start_s"] = start_s
     out["tiny_flash"] = phase_tiny_flash(fa, gpt2, device)
@@ -1424,6 +1460,486 @@ def phase_tiny_flash(fa, gpt2, device):
     return {"max_abs": d, "fwd_launches": counts["fwd"], "d16_refused": refused}
 
 
+# [fit], [moe] and [vit]: the Train library's TorchTrainer fitting GPT-2-124M
+# from a GPU-leased worker through a gang restart, then GPT-2 with experts
+# and ViT-B/16 training on the card.
+# The device of [fit], [moe], [vit], [deploy] and [push]; a CPU rehearsal
+# of these phases sets "cpu".
+DEVICE = "cuda"
+FIT_CKPT_AFTER = 6  # the step after which the loop reports its checkpoint
+# The last step the driver is sure to have from the first attempt, which
+# kills its own process once the report of the next step returns: the
+# driver asks for that report only after it has received this one.
+FIT_DIE_AFTER = 8
+# [moe]: GPT-2-124M with 8 experts, the Switch layout (Fedus et al., 2021):
+# capacity factor 1.25 (C = 160 of 1024 tokens a row), aux coefficient 0.01.
+MOE_EXPERTS = 8
+# One block's _moe_mlp on the card in f32 against the same function on the
+# CPU: a token whose two top router probabilities lie within MOE_MARGIN of
+# each other may choose another expert on the other device (their f32
+# logits differ by summation order, ~1e-6); every other token must choose
+# the same expert and slot (rows where a near-tie token did flip are left
+# out of the slot and output comparison, since it moves the slots of the
+# row's later tokens), and its output agree within MOE_TOL: f32 products
+# summed in another order (outputs of size ~0.02).
+MOE_MARGIN = 1e-4
+MOE_TOL = dict(atol=1e-5, rtol=1e-4)
+# ViT-B/16 logits at B=2 in f32 on the card against the port's CPU forward
+# from the same weights: f32 products summed in another order over 12
+# layers, logits of size ~0.5.
+VIT_BATCH, VIT_PARITY_BATCH = 64, 2
+VIT_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _proc_start_epoch(pid="self"):
+    """A process's start time as a Unix time, from /proc (10 ms ticks)."""
+    with open(f"/proc/{pid}/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(line.split()[1]) for line in f if line.startswith("btime"))
+    return btime + start_ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _fs_type(path):
+    """The filesystem type and mount point of ``path``, from /proc/mounts."""
+    path = os.path.realpath(path)
+    best = ("?", "")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _, mnt, fstype = line.split()[:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and len(mnt) >= len(best[1]):
+                best = (fstype, mnt)
+    return best
+
+
+def _fit_loop(config):
+    """The [fit] worker's loop: GPT-2-124M from seed 1 on its leased card,
+    [train]'s steps on [train]'s batch, one report a step (loss, grad norm,
+    step ms, the kernels' launches), a checkpoint (model, AdamW state, step)
+    after FIT_CKPT_AFTER; on its first attempt it kills its own process
+    once the report of the step after FIT_DIE_AFTER returns.  Resumes from
+    the session's checkpoint."""
+    t_loop = time.time()
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.train.backend import process_group_facts
+
+    dev = config["device"]
+    t0 = time.time()
+    torch.zeros(1, device=dev)
+    _sync()
+    facts = {**_worker_facts(), "group": process_group_facts(), "proc_start": _proc_start_epoch(),
+             "loop_entry": t_loop, "cuda_init_s": time.time() - t0,
+             "device_count": torch.cuda.device_count(),
+             "device_name": torch.cuda.get_device_name(0) if dev == "cuda" else None}
+    cfg = config["cfg"]
+    t0 = time.time()
+    model = gpt2.init(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    opt = spmd.adamw(model.parameters(), 3e-4, weight_decay=0.1)
+    _sync()
+    facts["build_s"] = time.time() - t0
+    start = 0
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        saved = ckpt.to_state_dict()
+        t_read = time.perf_counter()
+        model.load_state_dict(saved["model"])
+        opt.load_state_dict(saved["optim"])
+        _sync()
+        start = saved["step"] + 1
+        facts["restore"] = {"read_s": t_read - t0, "load_s": time.perf_counter() - t_read,
+                            "path": ckpt.path}
+        del saved
+    step = spmd.compile_train_step(gpt2.loss_fn, opt)
+    state = spmd.TrainState(start, model)
+    batch = {"tokens": config["tokens"].to(dev)}
+    trial_dir = train.get_context().get_trial_dir()
+    marker = os.path.join(trial_dir, "killed")
+    prev_report_s = None
+    for i in range(start, config["steps"]):
+        _flash_counts_zero(fa)
+        _sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = metrics["loss"].item()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        out = {"step": i, "loss": loss, "grad_norm": metrics["grad_norm"].item(), "step_ms": step_ms,
+               "launches": _counts(fa), "attempt": 1 if ckpt is None else 2,
+               "prev_report_s": prev_report_s}
+        if i == start:
+            out["facts"] = facts
+        checkpoint = None
+        if i == FIT_CKPT_AFTER:
+            t0 = time.perf_counter()
+            checkpoint = train.Checkpoint.from_state_dict(
+                {"model": model.state_dict(), "optim": opt.state_dict(), "step": i})
+            out["ckpt"] = {"write_s": time.perf_counter() - t0, "tmp": checkpoint.path,
+                           "bytes": sum(os.path.getsize(os.path.join(checkpoint.path, f))
+                                        for f in os.listdir(checkpoint.path))}
+        t0 = time.perf_counter()
+        train.report(out, checkpoint=checkpoint)
+        prev_report_s = time.perf_counter() - t0
+        if i == FIT_DIE_AFTER + 1 and not os.path.exists(marker):
+            with open(marker, "w") as f:
+                f.write(repr(time.time()))
+            os._exit(1)
+    return state.step
+
+
+def _shutdown_checked(rt, rt_api, phase):
+    """shutdown(), then no process of the driver may remain."""
+    group = rt_api._node_group
+    rt.shutdown()
+    deadline = time.monotonic() + 15
+    while _descendants(os.getpid()) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = {p: _cmdline(p) for p in _descendants(os.getpid())}
+    _require(not left, f"[{phase}] processes left after shutdown(): {left}")
+    _require(group.gcs_proc.poll() is not None and group.raylet_proc.poll() is not None,
+             f"[{phase}] the GCS or the raylet outlived shutdown()")
+
+
+def phase_fit(fa, gpt2, cfg, tokens, train_out, smi):
+    """[fit]: TorchTrainer.fit() of GPT-2-124M from a num_gpus=1 worker over
+    an NCCL group of one, through the worker's death and the gang's restart
+    from the step-FIT_CKPT_AFTER checkpoint; every reported loss must be
+    [train]'s of the same step."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.core import api as rt_api
+
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    run = train.RunConfig(name=f"chip_smoke_fit_{os.getpid()}",
+                          failure_config=train.FailureConfig(max_failures=1))
+    trial_dir = os.path.join(run.resolved_storage_path(), run.name)
+    t0 = time.perf_counter()
+    rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+    start_s = time.perf_counter() - t0
+    try:
+        t_fit = time.time()
+        result = train.TorchTrainer(
+            _fit_loop,
+            train_loop_config={"cfg": cfg, "tokens": tokens.cpu(), "steps": steps, "device": DEVICE},
+            # a CPU rehearsal leases no card: its worker forms gloo
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=DEVICE == "cuda"),
+            backend_config=train.TorchConfig(init_distributed=True),
+            run_config=run,
+        ).fit()
+        fit_s = time.time() - t_fit
+    finally:
+        _shutdown_checked(rt, rt_api, "fit")
+    try:
+        out = _fit_checks(result, t_fit, fit_s, start_s, cfg, train_out, trial_dir,
+                          _fs_type(trial_dir), smi)
+    finally:
+        shutil.rmtree(trial_dir, ignore_errors=True)
+    _log("fit", "shutdown(): no process of the driver remains; the trial dir is removed")
+    return out
+
+
+def _fit_checks(result, t_fit, fit_s, start_s, cfg, train_out, trial_dir, fs, smi):
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    _require(result.error is None, f"fit() ended with {result.error!r}")
+    hist = result.metrics_dataframe
+    got = [m["step"] for m in hist]
+    # The report of the step after FIT_DIE_AFTER may have died with the
+    # first attempt's process or reached the driver.
+    first_attempt, resumed = list(range(FIT_DIE_AFTER + 1)), list(range(FIT_CKPT_AFTER + 1, steps))
+    want_steps = (first_attempt + resumed, first_attempt + [FIT_DIE_AFTER + 1] + resumed)
+    _require(got in want_steps, f"reported steps {got}, expected one of {want_steps}")
+    first, second = hist[0], next(m for m in hist if m["attempt"] == 2)
+    _require(first["attempt"] == 1 and second["attempt"] == 2, "the restart did not resume from the checkpoint")
+    for m in (first, second):
+        f = m["facts"]
+        _check_worker(f, f"[fit] worker (attempt {m['attempt']})")
+        _require(f["visible"] == "0" and f["device_count"] == 1,
+                 f"the train worker sees CUDA_VISIBLE_DEVICES={f['visible']!r}, {f['device_count']} card(s)")
+        g = f["group"]
+        _require(g is not None and g["backend"] == "nccl" and g["world_size"] == 1 and g["all_reduce"] == 1,
+                 f"the process group did not form as NCCL at world size 1: {g}")
+    _require(first["facts"]["pid"] != second["facts"]["pid"], "the restarted gang reused the killed process")
+    mismatched = [(m["step"], m["loss"], train_out["losses"][m["step"]]) for m in hist
+                  if m["loss"] != train_out["losses"][m["step"]]]
+    bad_launches = [(m["step"], m["launches"]) for m in hist
+                    if m["launches"] != {"fwd": cfg.num_layers, "dq": cfg.num_layers, "dkv": cfg.num_layers}]
+    _log("fit", "loss " + " ".join(f"{m['step']}:{m['loss']:.6f}" for m in hist))
+    _log("fit", f"losses against [train]'s of the same step: {len(hist) - len(mismatched)} of {len(hist)} "
+                f"bit-equal; differing {mismatched}")
+    _require(not bad_launches, f"steps whose kernel launches were not {cfg.num_layers} of each: {bad_launches}")
+    _require(not mismatched, f"[fit] losses differ from [train]'s: {mismatched}")
+    launches = {k: sum(m["launches"][k] for m in hist) for k in ("fwd", "dq", "dkv")}
+
+    f, g = first["facts"], first["facts"]["group"]
+    t_import = g["at"] - g["init_s"] - g["import_s"]
+    # The raylet may hand the lease to a worker process it started earlier:
+    # the process's start is printed beside, not counted in, the parts.
+    parts = {"reserve_lease_actor": t_import - t_fit, "torch_import": g["import_s"], "nccl_init": g["init_s"],
+             "to_loop": f["loop_entry"] - g["at"], "cuda_init": f["cuda_init_s"], "model_build": f["build_s"]}
+    first_s = first["_timestamp"] - t_fit
+    _log("fit", f"{smi}: runtime start {start_s:.3f} s; TorchTrainer.fit() {fit_s:.3f} s in all; first "
+                f"reported step at {first_s:.3f} s: " + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+                + f", first step {first['step_ms'] / 1e3:.3f} s (the worker process started "
+                f"{f['proc_start'] - t_fit:+.3f} s from fit())")
+    _log("fit", f"worker on {f['device_name']} (CUDA_VISIBLE_DEVICES={f['visible']!r}, pid {f['pid']}), "
+                f"no JAX loaded; process group {g['backend']} world size {g['world_size']}, all_reduce of "
+                f"ones {g['all_reduce']}")
+    ckpt_round = next(m for m in hist if "ckpt" in m)
+    after = next(m for m in hist if m["step"] == FIT_CKPT_AFTER + 1 and m["attempt"] == 1)
+    nbytes = ckpt_round["ckpt"]["bytes"]
+    write_s, report_s = ckpt_round["ckpt"]["write_s"], after["prev_report_s"]
+    plain_report_s = sorted(m["prev_report_s"] for m in hist if m["prev_report_s"] is not None
+                            and m["step"] != FIT_CKPT_AFTER + 1)[0]
+    restore = second["facts"]["restore"]
+    restore_s = restore["read_s"] + restore["load_s"]
+    _log("fit", f"checkpoint {nbytes / 1e9:.3f} GB (model and AdamW state, f32) to {fs[0]} (mount {fs[1]}): "
+                f"write {write_s:.3f} s ({nbytes / write_s / 1e9:.3f} GB/s), report with persist "
+                f"{report_s:.3f} s (a report without a checkpoint {plain_report_s:.4f} s); "
+                f"{nbytes / (write_s + report_s) / 1e9:.3f} GB/s written and persisted; restore "
+                f"{restore_s:.3f} s ({nbytes / restore_s / 1e9:.3f} GB/s: read to the CPU {restore['read_s']:.3f} "
+                f"s, load onto the card {restore['load_s']:.3f} s)")
+    with open(os.path.join(trial_dir, "killed")) as fh:
+        killed_at = float(fh.read())
+    f2, g2 = second["facts"], second["facts"]["group"]
+    t_import2 = g2["at"] - g2["init_s"] - g2["import_s"]
+    restart = {"teardown_reserve_lease_actor": t_import2 - killed_at, "torch_import": g2["import_s"],
+               "nccl_init": g2["init_s"], "to_loop": f2["loop_entry"] - g2["at"], "cuda_init": f2["cuda_init_s"],
+               "model_build": f2["build_s"], "restore": restore_s}
+    resumed_s = second["_timestamp"] - killed_at
+    last = max(m["step"] for m in hist if m["attempt"] == 1)
+    _log("fit", f"killed once step {FIT_DIE_AFTER + 1}'s report returned (the driver had the first attempt's "
+                f"steps up to {last}); first resumed step (step {second['step']}) reported "
+                f"{resumed_s:.3f} s later: " + ", ".join(f"{k} {v:.3f} s" for k, v in restart.items())
+                + f", first step {second['step_ms'] / 1e3:.3f} s (the new worker process started "
+                f"{f2['proc_start'] - killed_at:+.3f} s from the kill)")
+    worker_ms = _spread([m["step_ms"] for m in hist if m["step"] >= TRAIN_WARMUP and m["step"] != second["step"]])
+    _log("fit", f"step {worker_ms[0]:.3f} ms in the worker (median, quartiles {worker_ms[1]:.3f}..{worker_ms[2]:.3f}) "
+                f"against [train]'s {train_out['step_ms']:.3f} ms; kernel launches in the worker {launches} "
+                f"({cfg.num_layers} of each per step, {len(hist)} steps)")
+    return {"launches": launches, "first_step_s": first_s, "first_step_parts_s": parts,
+            "resumed_step_s": resumed_s, "restart_parts_s": restart, "ckpt_bytes": nbytes,
+            "ckpt_write_s": write_s, "ckpt_report_s": report_s, "restore_s": restore_s,
+            "storage_fs": fs[0], "worker_step_ms": worker_ms[0], "train_step_ms": train_out["step_ms"],
+            "fit_s": fit_s, "losses_bitwise": True}
+
+
+def _moe_hook(gpt2, record):
+    """Wraps gpt2._moe_mlp so that each call records its input and its
+    routing: (h, tokens routed, tokens past capacity).  Returns the
+    original to restore."""
+    orig = gpt2._moe_mlp
+
+    def wrapped(h, router, moe_in, moe_out, config, mask=None):
+        with torch.no_grad():
+            _, _, _, onehot, pos = gpt2.moe_route(h, router, config, mask)
+            C = gpt2.moe_capacity(config, h.shape[1])
+            record.append((h.detach(), int(onehot.sum()), int(((pos >= C) & (onehot > 0)).sum())))
+        return orig(h, router, moe_in, moe_out, config, mask)
+
+    gpt2._moe_mlp = wrapped
+    return orig
+
+
+def phase_moe_block(gpt2, model, layer, h):
+    """One block's _moe_mlp on the card in f32 against the CPU's, on ``h``:
+    the features that reached that block's MoE in the model's forward over
+    [moe]'s tokens (bf16 values, exact in f32), so that the comparison
+    covers the routing of the model's own features and the tokens that
+    overflow their expert."""
+    cfg = dataclasses.replace(model.config, dtype=torch.float32)
+    blk = model.blocks[layer]
+    B, S, E = h.shape
+    h = h.float()
+    weights = [blk.router.detach(), blk.moe_in.detach(), blk.moe_out.detach()]
+    with torch.no_grad():
+        probs, _, expert, onehot, pos = gpt2.moe_route(h, weights[0], cfg)
+        out, aux = gpt2._moe_mlp(h, *weights, cfg)
+        h_c, w_c = h.cpu(), [w.cpu() for w in weights]
+        probs_c, _, expert_c, onehot_c, pos_c = gpt2.moe_route(h_c, w_c[0], cfg)
+        out_c, aux_c = gpt2._moe_mlp(h_c, *w_c, cfg)
+        # How far one direction per row decides the routing: the expert the
+        # row's mean feature would choose, against each token's.
+        expert_of_mean = torch.argmax(h_c.mean(dim=1) @ w_c[0].float(), dim=-1)
+    top2 = probs_c.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= MOE_MARGIN
+    expert, pos, out = expert.cpu(), pos.cpu().amax(-1), out.cpu()
+    pos_c = pos_c.amax(-1)
+    flipped = near & (expert != expert_c)
+    rows = ~flipped.any(dim=1, keepdim=True).expand(B, S)  # rows no flip moved
+    clear = ~near
+    _require(torch.equal(expert[clear], expert_c[clear]),
+             f"{int((expert[clear] != expert_c[clear]).sum())} tokens clear of a tie chose another expert")
+    _require(torch.equal(pos[rows], pos_c[rows]), "a token's capacity slot differs from the CPU's")
+    keep = clear & rows
+    d = (out[keep] - out_c[keep]).abs().max().item()
+    torch.testing.assert_close(out[keep], out_c[keep], **MOE_TOL)
+    C = gpt2.moe_capacity(cfg, S)
+    over = pos_c >= C
+    compared_over = int((over & keep).sum())
+    _require(compared_over > 0, f"no token past capacity among the compared ones (C = {C})")
+    with_mean = float((expert_c == expert_of_mean[:, None]).float().mean())
+    busiest = float(onehot_c.sum(dim=1).amax(dim=-1).mean() / S)
+    _log("moe", f"layer {layer}'s _moe_mlp on its own features over [moe]'s tokens, ({B}, {S}, {E}) f32, card "
+                f"against CPU: {int(near.sum())} of {B * S} tokens within {MOE_MARGIN} of a tie "
+                f"({int(flipped.sum())} chose another expert, {int((~rows[:, 0]).sum())} rows left out of the "
+                f"slot check); experts and slots equal elsewhere; output max |d| {d:.3g}; aux {aux.item():.6f} "
+                f"vs {aux_c.item():.6f}; C = {C}, {float(over.float().mean()):.4f} of tokens past capacity "
+                f"({compared_over} of them compared)")
+    _log("moe", f"layer {layer}: {with_mean:.4f} of tokens choose the expert their row's mean feature "
+                f"chooses (1/{cfg.num_experts} = {1 / cfg.num_experts:.4f} if unrelated); the busiest expert "
+                f"of a row takes {busiest:.4f} of its tokens (mean over rows)")
+    return {"layer": layer, "near_ties": int(near.sum()), "flipped": int(flipped.sum()), "max_abs": d,
+            "over_compared": compared_over, "with_row_mean": with_mean, "busiest_share": busiest}
+
+
+def phase_moe(fa, gpt2, spmd, tokens, cfg):
+    """[moe]: GPT-2 with experts (``cfg``) at ``tokens``' batch, trained on
+    DEVICE."""
+    tokens = tokens.to(DEVICE)
+    model = gpt2.init(cfg, torch.Generator(device=DEVICE).manual_seed(6), DEVICE)
+    record = []
+    orig = _moe_hook(gpt2, record)
+    try:
+        with torch.no_grad():
+            _, aux0 = model.features_aux(tokens[:, :-1])
+    finally:
+        gpt2._moe_mlp = orig
+    per_layer = [o / r for _, r, o in record]
+    routed, over = sum(r for _, r, _ in record), sum(o for _, _, o in record)
+    layer = max(range(len(record)), key=lambda i: per_layer[i])
+    _log("moe", "tokens past capacity at init by layer: " + " ".join(f"{x:.4f}" for x in per_layer))
+    block = phase_moe_block(gpt2, model, layer, record[layer][0])
+    del record
+    batch = {"tokens": tokens}
+    step = spmd.compile_train_step(gpt2.loss_fn, spmd.adamw(model.parameters(), 3e-4, weight_decay=0.1))
+    state = spmd.TrainState(0, model)
+    losses, samples = [], []
+    torch.cuda.reset_peak_memory_stats()
+    _flash_counts_zero(fa)
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        before = _counts(fa)
+        _sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+        samples.append((time.perf_counter() - t0) * 1e3)
+        per_step = {k: v - before[k] for k, v in _counts(fa).items()}
+        _require(all(n == cfg.num_layers for n in per_step.values()),
+                 f"[moe] step {i}: launches {per_step}, expected {cfg.num_layers} of each")
+    launches = _counts(fa)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    record = []
+    orig = _moe_hook(gpt2, record)
+    try:
+        with torch.no_grad():
+            model.features_aux(tokens[:, :-1])
+    finally:
+        gpt2._moe_mlp = orig
+    routed1, over1 = sum(r for _, r, _ in record), sum(o for _, _, o in record)
+    del record
+    ms = _spread(samples[TRAIN_WARMUP:])[0]
+    busy = phase_profile(lambda: step(state, batch), "one [moe] step", ms, top=8) if DEVICE == "cuda" else None
+    aux0 = aux0.item()
+    want0 = math.log(cfg.vocab_size) + cfg.moe_aux_coeff * aux0
+    _require(all(math.isfinite(x) for x in losses), f"[moe] non-finite loss: {losses}")
+    _require(abs(losses[0] - want0) < LOSS_WINDOW, f"[moe] first loss {losses[0]}, expected about {want0}")
+    _require(losses[-1] < losses[0] - 0.1, f"[moe] loss did not fall: {losses}")
+    ms, q25, q75 = _spread(samples[TRAIN_WARMUP:])
+    n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
+    flops = gpt2.flops_per_token(cfg, tokens.shape[1] - 1) * n_tokens
+    _log("moe", f"GPT-2-124M with {cfg.num_experts} experts: {gpt2.num_params(cfg) / 1e6:.1f} M parameters, "
+                f"capacity factor {cfg.moe_capacity_factor} (C = {gpt2.moe_capacity(cfg, tokens.shape[1] - 1)}), "
+                f"aux at init {aux0:.4f} over {cfg.num_layers} layers ({aux0 / cfg.num_layers:.4f} a layer)")
+    _log("moe", "loss " + " ".join(f"{x:.4f}" for x in losses))
+    _log("moe", f"tokens past capacity: {over / routed:.4f} of {routed} routings at init, {over1 / routed1:.4f} "
+                f"after {len(losses)} steps; kernel launches {launches} ({cfg.num_layers} of each per step)")
+    _log("moe", f"step {ms:.3f} ms (median of {TRAIN_STEPS}, quartiles {q25:.3f}..{q75:.3f}), "
+                f"{n_tokens / ms * 1e3:.0f} tokens/s, {flops / 1e12:.3f} TFLOP per step (active experts) -> "
+                f"{flops / (ms / 1e3) / BF16_FLOPS:.4f} of the bf16 peak; peak memory {peak:.2f} GiB")
+    return {"launches": launches, "step_ms": ms, "tokens_per_s": n_tokens / ms * 1e3,
+            "peak_share": flops / (ms / 1e3) / BF16_FLOPS, "peak_gib": peak, "aux0": aux0, "busy_ms": busy,
+            "dropped_init": over / routed, "dropped_end": over1 / routed1, "losses": losses, "block": block}
+
+
+def phase_vit(fa, vit, smi, cfg):
+    """[vit]: the ViT of ``cfg`` (ViT-B/16: bf16 compute, f32 params,
+    remat) at B=VIT_BATCH on DEVICE."""
+    from ray_tpu_torch.parallel import spmd
+
+    device = DEVICE
+    g = torch.Generator(device=device).manual_seed(7)
+    model = vit.init(cfg, g, device)
+    images = torch.randn((VIT_BATCH, cfg.image_size, cfg.image_size, cfg.channels), generator=g, device=device)
+    labels = torch.randint(0, cfg.num_classes, (VIT_BATCH,), generator=g, device=device)
+    _flash_counts_zero(fa)
+
+    # Logits in f32, card against CPU, from the same weights.
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    card, cpu = vit.ViT(f32, device), vit.ViT(f32, "cpu")
+    card.load_state_dict(model.state_dict())
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = images[:VIT_PARITY_BATCH]
+    with torch.inference_mode():
+        got, want = card(x).cpu(), cpu(x.cpu())
+    del card, cpu
+    d = (got - want).abs().max().item()
+    _log("vit", f"{smi}: ViT-B/16, {vit.num_params(cfg) / 1e6:.1f} M parameters, {cfg.num_patches} patch "
+                f"tokens, {cfg.num_classes} classes; logits at B={VIT_PARITY_BATCH} in f32, card against "
+                f"CPU: max |d| {d:.3g}")
+    _require(got.shape == (VIT_PARITY_BATCH, cfg.num_classes), f"ViT logits {tuple(got.shape)}")
+    torch.testing.assert_close(got, want, **VIT_TOL)
+
+    # remat on and off: the same gradients.
+    def grads(m):
+        m.zero_grad(set_to_none=True)
+        vit.loss_fn(m, {"images": images, "labels": labels}).backward()
+        return {n: p.grad.clone() for n, p in m.named_parameters()}
+
+    plain = vit.ViT(dataclasses.replace(cfg, remat=False), device)
+    plain.load_state_dict(model.state_dict())
+    g_remat, g_plain = grads(model), grads(plain)
+    model.zero_grad(set_to_none=True)
+    del plain
+    remat_d = max((g_remat[n] - g_plain[n]).abs().max().item() for n in g_plain)
+    _log("vit", f"one step's gradients at B={VIT_BATCH} with remat on and off: max |d| {remat_d}")
+    _require(remat_d == 0, f"remat changed the gradients: max |d| {remat_d}")
+    del g_remat, g_plain
+
+    batch = {"images": images, "labels": labels}
+    step = spmd.compile_train_step(vit.loss_fn, spmd.adamw(model.parameters(), 3e-4, weight_decay=0.1))
+    state = spmd.TrainState(0, model)
+    losses, samples = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
+        _sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+        samples.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = _spread(samples[TRAIN_WARMUP:])[0]
+    busy = phase_profile(lambda: step(state, batch), "one [vit] step", ms, top=8) if device == "cuda" else None
+    counts = _counts(fa)
+    _require(not any(counts.values()), f"[vit] launched flash kernels: {counts}")
+    _require(all(math.isfinite(v) for v in losses), f"[vit] non-finite loss: {losses}")
+    _require(abs(losses[0] - math.log(cfg.num_classes)) < LOSS_WINDOW, f"[vit] first loss {losses[0]}")
+    _require(losses[-1] < losses[0] - 0.1, f"[vit] loss did not fall: {losses}")
+    ms, q25, q75 = _spread(samples[TRAIN_WARMUP:])
+    fpi = vit.flops_per_image(cfg)
+    _log("vit", "loss " + " ".join(f"{v:.4f}" for v in losses))
+    _log("vit", f"step {ms:.3f} ms at B={VIT_BATCH} (median of {TRAIN_STEPS}, quartiles {q25:.3f}..{q75:.3f}), "
+                f"{VIT_BATCH / ms * 1e3:.1f} images/s, {fpi / 1e9:.2f} GFLOP an image (from the shapes, remat's "
+                f"recomputation not counted) -> {fpi * VIT_BATCH / (ms / 1e3) / BF16_FLOPS:.4f} of the bf16 "
+                f"peak; peak memory {peak:.2f} GiB; flash launches {counts}")
+    return {"step_ms": ms, "images_per_s": VIT_BATCH / ms * 1e3, "gflop_per_image": fpi / 1e9,
+            "peak_share": fpi * VIT_BATCH / (ms / 1e3) / BF16_FLOPS, "peak_gib": peak, "busy_ms": busy,
+            "logits_max_abs": d, "losses": losses}
+
+
 # [deploy] and [push]: Mistral-7B served through serve.run and a handle from
 # a replica that holds a one-GPU lease, then new weights pushed into it.
 DEPLOY_CPUS = 4
@@ -1433,7 +1949,6 @@ PUSH_PROMPT_LENS = (64, 200, 512)
 PUSH_NEW = 32
 PUSH_STREAM_NEW = 128
 STORE_MARGIN_BYTES = 1 << 30
-DEPLOY_DEVICE = "cuda"  # a CPU rehearsal of the two phases sets "cpu"
 
 
 def _seeded_llama(cfg, seed, device):
@@ -1594,8 +2109,8 @@ def _deploy(serve, llama, cfg, seed):
 
     return serve.run(
         LlamaDeployment.options(name="llm", ray_actor_options={"num_gpus": 1}).bind(
-            config=cfg, weights_loader=functools.partial(_seeded_llama, cfg, seed, DEPLOY_DEVICE),
-            device=DEPLOY_DEVICE, **SERVE_ENGINE),
+            config=cfg, weights_loader=functools.partial(_seeded_llama, cfg, seed, DEVICE),
+            device=DEVICE, **SERVE_ENGINE),
         route_prefix=None)
 
 
@@ -1690,8 +2205,8 @@ def phase_push(rt, fa, llama, cfg, smi):
     handle = serve.get_deployment_handle("llm")
     rng = np.random.default_rng(6)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PUSH_PROMPT_LENS]
-    model = _seeded_llama(cfg, PUSH_SEED, DEPLOY_DEVICE)
-    engine = LLMEngine(model, device=DEPLOY_DEVICE, **SERVE_ENGINE)
+    model = _seeded_llama(cfg, PUSH_SEED, DEVICE)
+    engine = LLMEngine(model, device=DEVICE, **SERVE_ENGINE)
 
     async def run():
         async def one(p):
@@ -1702,7 +2217,7 @@ def phase_push(rt, fa, llama, cfg, smi):
     want_sum = _checksum(model.state_dict())
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     del engine, model
-    if DEPLOY_DEVICE == "cuda":
+    if DEVICE == "cuda":
         torch.cuda.empty_cache()
     nbytes = sum(v.numel() * v.element_size() for v in state.values())
     rt.get(replica._apply(_replica_reset_peak), timeout=60)
@@ -1826,7 +2341,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from ray_tpu_torch.entry import entry
-    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models import gpt2, vit
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.parallel import spmd
@@ -1867,6 +2382,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     runtime = phase_runtime(fa, gpt2, cfg, tokens[0], smi)
 
+    # This slice's main path: the same training through the Train library
+    # from a GPU-leased worker, with a checkpoint and a gang restart; then
+    # GPT-2 with experts and ViT-B/16.
+    t0 = time.perf_counter()
+    fit = phase_fit(fa, gpt2, cfg, tokens[0], train, smi)
+    moe = phase_moe(fa, gpt2, spmd, tokens[0], gpt2.GPTConfig.gpt2_124m(
+        num_experts=MOE_EXPERTS, attention_impl="flash", remat=False, scan_unroll=12))
+    torch.cuda.empty_cache()
+    vit_out = phase_vit(fa, vit, smi, vit.ViTConfig.vit_b16())
+    torch.cuda.empty_cache()
+    _log("done", f"[fit], [moe] and [vit] {time.perf_counter() - t0:.1f} s")
+
     # The serving path (Mistral-7B through the LLM engine), after the GPT-2
     # state is freed so that its peak memory is its own.
     del tokens
@@ -1898,9 +2425,14 @@ def main() -> int:
     ]
     # The forward kernel's launches in the GPU-leased worker (the runtime path).
     kernels[0]["runtime_launches"] = runtime["launches"]
+    # Each kernel's launches in the trainer's worker ([fit]) and in [moe].
+    for entry, key in zip(kernels, ("fwd", "dq", "dkv")):
+        entry["fit_launches"] = fit["launches"][key]
+        entry["moe_launches"] = moe["launches"][key]
     print(json.dumps({"forward_ms": fwd, "forward_path_fwd_launches": fwd_launches,
                       "train_step_ms": train["step_ms"], "train_tokens_per_s": train["tokens_per_s"],
-                      "head_backward_ms": head, "runtime": runtime, **llama_out, "card": smi}))
+                      "head_backward_ms": head, "runtime": runtime, "fit": fit, "moe": moe,
+                      "vit": vit_out, **llama_out, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,8 +3,11 @@
 The reference keeps a model's parameters as a pytree: top-level arrays
 (GPT-2: ``wte`` (V, E), ``wpe`` (S, E), ``lnf_scale``/``lnf_bias`` (E,);
 Llama: ``tok_embed`` (V, E), ``final_norm`` (E,), ``lm_head`` (V, E) unless
-tied) and ``blocks``, whose every leaf is stacked over layers with a leading
-L.  The port's modules keep the same per-layer shapes, so layer i of each
+tied; ViT: ``patch_kernel`` (P, E), ``patch_bias``, ``pos_embed`` (N, E),
+``lnf_scale``/``lnf_bias``, ``head_kernel`` (E, K), ``head_bias``) and
+``blocks``, whose every leaf is stacked over layers with a leading L
+(GPT-2 with experts: ``router`` (L, E, X), ``moe_in`` (L, X, E, M) and
+``moe_out`` (L, X, M, E) in place of the dense MLP's four leaves).  The port's modules keep the same per-layer shapes, so layer i of each
 leaf is copied as it is.
 """
 
@@ -16,6 +19,7 @@ from torch import nn
 
 from ray_tpu_torch.models.gpt2 import GPT2, GPTConfig
 from ray_tpu_torch.models.llama import Llama, LlamaConfig
+from ray_tpu_torch.models.vit import ViT, ViTConfig
 
 
 def _load(model: nn.Module, np_params, top, num_layers: int):
@@ -52,7 +56,8 @@ def _load(model: nn.Module, np_params, top, num_layers: int):
 def gpt2_params_from_jax(np_params, config: GPTConfig, device="cuda") -> GPT2:
     """A :class:`GPT2` on ``device`` holding ``np_params``: the reference's
     pytree of arrays, each convertible by ``np.asarray`` (numpy arrays, or
-    JAX arrays fetched to the host)."""
+    JAX arrays fetched to the host); with ``config.num_experts`` > 0 the
+    blocks carry the MoE leaves."""
     return _load(GPT2(config, device), np_params, ("wte", "wpe", "lnf_scale", "lnf_bias"),
                  config.num_layers)
 
@@ -62,3 +67,12 @@ def llama_params_from_jax(np_params, config: LlamaConfig, device="cuda") -> Llam
     ``np_params`` (arrays convertible by ``np.asarray``)."""
     top = ("tok_embed", "final_norm") + (() if config.tie_embeddings else ("lm_head",))
     return _load(Llama(config, device), np_params, top, config.num_layers)
+
+
+def vit_params_from_jax(np_params, config: ViTConfig, device="cuda") -> ViT:
+    """A :class:`ViT` on ``device`` holding the reference's ViT pytree
+    ``np_params`` (arrays convertible by ``np.asarray``): ``blocks`` is
+    unstacked into the module list."""
+    top = ("patch_kernel", "patch_bias", "pos_embed", "lnf_scale", "lnf_bias",
+           "head_kernel", "head_bias")
+    return _load(ViT(config, device), np_params, top, config.num_layers)

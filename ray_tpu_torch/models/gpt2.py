@@ -15,8 +15,10 @@ the port's CUDA flash kernels; "dense" is the plain path and the one a
 ragged ``S`` takes.  The reference takes flash at any head dim; on the card
 the port's kernels take D = 64 or 128 in f32 or bf16 and raise for any other
 shape, so a flash config such as ``GPTConfig.tiny``'s (D = 16) runs only on
-the CPU, where attention is the kernels' plain version.  Mixture-of-Experts
-blocks and ring attention are not ported yet.
+the CPU, where attention is the kernels' plain version.  With
+``num_experts`` > 0 every block's MLP is the reference's top-1 (switch)
+Mixture-of-Experts (:func:`_moe_mlp`), whose load-balancing aux loss
+``loss_fn`` adds; ring attention is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models.common import gelu, layernorm, matmul_f32
-from ray_tpu_torch.models.xent import next_token_loss
+from ray_tpu_torch.models.xent import head_loss, split_batch
 from ray_tpu_torch.ops.attention import dense_attention
 from ray_tpu_torch.ops.flash_attention import flash_attention_bhsd
 
@@ -57,7 +59,12 @@ class GPTConfig:
     # shapes the reference's compiled layer scan; the port's layer loop is
     # Python and has nothing to unroll, so it keeps it only to read the same
     scan_unroll: int = 1
-    num_experts: int = 0  # > 0 (Mixture-of-Experts) is not ported yet
+    # Mixture-of-Experts: num_experts > 0 replaces every block's dense MLP
+    # with a top-1 (switch) MoE: dense one-hot dispatch with a per-row
+    # expert capacity; tokens past capacity pass through the residual.
+    num_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_aux_coeff: float = 0.01  # Switch load-balancing aux loss weight
 
     @property
     def head_dim(self) -> int:
@@ -82,8 +89,6 @@ class GPTConfig:
 
 
 def _check_config(c: GPTConfig):
-    if c.num_experts > 0:
-        raise NotImplementedError("Mixture-of-Experts GPT-2 is not ported yet")
     if c.attention_impl == "ring":
         raise NotImplementedError("ring attention is not ported yet")
     if c.attention_impl not in ("dense", "flash"):
@@ -94,8 +99,71 @@ def _param(shape, c: GPTConfig, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=c.param_dtype, device=device))
 
 
+def moe_route(h, router, config: GPTConfig, mask=None):
+    """The top-1 routing of :func:`_moe_mlp`, all in f32: router
+    probabilities (B, S, X), each token's gate (its top probability) and
+    expert, its one-hot choice (B, S, X) with padding tokens zeroed, and its
+    slot within its row's expert buffer (``pos``: -1 where it chose no
+    expert, at or past ``capacity`` where it overflowed)."""
+    X = config.num_experts
+    logits = torch.einsum("bse,ex->bsx", h.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)
+    gate = probs.amax(dim=-1)
+    expert = torch.argmax(probs, dim=-1)
+    onehot = F.one_hot(expert, X).float()
+    if mask is not None:
+        onehot = onehot * mask[..., None].float()
+    # position of each token within its row's expert capacity buffer
+    pos = torch.cumsum(onehot, dim=1) * onehot - 1.0
+    return probs, gate, expert, onehot, pos
+
+
+def moe_capacity(config: GPTConfig, seq_len: int) -> int:
+    """Each expert's buffer per batch row: ceil(cap_factor · S / X)."""
+    return max(1, math.ceil(config.moe_capacity_factor * seq_len / config.num_experts))
+
+
+def _moe_mlp(h, router, moe_in, moe_out, config: GPTConfig, mask=None):
+    """Top-1 (switch) MoE MLP, the reference's ``_moe_mlp``.  h (B, S, E)
+    post-norm → (delta (B, S, E) in dtype, aux 0-d f32).
+
+    GShard-style dense dispatch grouped by batch row: each row routes its S
+    tokens with per-row expert capacity C = ceil(cap_factor · S / X), so the
+    one-hot dispatch tensor is (B, S, X, C).  The dispatch einsum runs in
+    f32 and is cast to dtype; the experts' GELU MLP runs in dtype; the
+    combine is weighted by the top-1 gate.  Tokens past capacity add
+    nothing (the residual carries them).  aux is the Switch
+    load-balancing loss X·Σ f_i·P_i (1.0 at perfect balance).  ``mask``
+    (B, S) takes padding tokens out of routing: they use no capacity and
+    the aux statistics count only real tokens."""
+    c = config
+    dt = c.dtype
+    X = c.num_experts
+    C = moe_capacity(c, h.shape[1])
+    probs, gate, _, onehot, pos = moe_route(h, router, c, mask)
+    disp = torch.where((pos >= 0) & (pos < C), onehot, 0.0)
+    pos_idx = pos.clamp(0, C - 1).long()
+    disp_bsxc = disp[..., None] * F.one_hot(pos_idx, C).float()
+    expert_in = torch.einsum("bsxc,bse->bxce", disp_bsxc, h.float()).to(dt)
+    hmid = gelu(torch.einsum("bxce,xem->bxcm", expert_in, moe_in.to(dt)))
+    expert_out = torch.einsum("bxcm,xme->bxce", hmid, moe_out.to(dt))
+    combine = (disp_bsxc * gate[..., None, None]).to(dt)
+    out = torch.einsum("bsxc,bxce->bse", combine, expert_out)
+    if mask is None:
+        f = onehot.mean(dim=(0, 1))
+        P = probs.mean(dim=(0, 1))
+    else:
+        m = mask[..., None].float()
+        denom = torch.clamp(m.sum(), min=1.0)
+        f = onehot.sum(dim=(0, 1)) / denom
+        P = (probs * m).sum(dim=(0, 1)) / denom
+    aux = X * torch.sum(f * P)
+    return out, aux
+
+
 class Block(nn.Module):
-    """One transformer block: attention and a dense GELU MLP, pre-norm."""
+    """One transformer block: attention and a GELU MLP (dense, or the
+    switch MoE with ``num_experts`` > 0), pre-norm."""
 
     def __init__(self, config: GPTConfig, device):
         super().__init__()
@@ -109,13 +177,21 @@ class Block(nn.Module):
         self.proj_bias = _param((E,), c, device)
         self.ln2_scale = _param((E,), c, device)
         self.ln2_bias = _param((E,), c, device)
-        self.fc_kernel = _param((E, M), c, device)
-        self.fc_bias = _param((M,), c, device)
-        self.out_kernel = _param((M, E), c, device)
-        self.out_bias = _param((E,), c, device)
+        if c.num_experts > 0:
+            X = c.num_experts
+            self.router = _param((E, X), c, device)
+            self.moe_in = _param((X, E, M), c, device)
+            self.moe_out = _param((X, M, E), c, device)
+        else:
+            self.fc_kernel = _param((E, M), c, device)
+            self.fc_bias = _param((M,), c, device)
+            self.out_kernel = _param((M, E), c, device)
+            self.out_bias = _param((E,), c, device)
 
-    def forward(self, x):
-        """x: (B, S, E) in config.dtype → (B, S, E)."""
+    def forward(self, x, mask=None):
+        """x: (B, S, E) in config.dtype → (x (B, S, E), the MoE aux loss: a
+        0-d f32 tensor, None for a dense MLP).  ``mask`` (B, S) reaches only
+        the MoE's routing."""
         c = self.config
         dt, H = c.dtype, c.num_heads
         h = layernorm(x, self.ln1_scale, self.ln1_bias)
@@ -140,10 +216,13 @@ class Block(nn.Module):
                 "bshd,hde->bse", attn, self.proj_kernel.to(dt)
             ) + self.proj_bias.to(dt)
         h = layernorm(x, self.ln2_scale, self.ln2_bias)
+        if c.num_experts > 0:
+            delta, aux = _moe_mlp(h, self.router, self.moe_in, self.moe_out, c, mask)
+            return x + delta, aux
         h = gelu(torch.einsum("bse,em->bsm", h, self.fc_kernel.to(dt)) + self.fc_bias.to(dt))
         return x + torch.einsum(
             "bsm,me->bse", h, self.out_kernel.to(dt)
-        ) + self.out_bias.to(dt)
+        ) + self.out_bias.to(dt), None
 
 
 class GPT2(nn.Module):
@@ -178,11 +257,23 @@ class GPT2(nn.Module):
 
     def features(self, tokens):
         """tokens (B, S) int → final-layernorm features (B, S, E) in dtype."""
+        return self.features_aux(tokens)[0]
+
+    def features_aux(self, tokens, mask=None):
+        """tokens (B, S) int → (final-layernorm features (B, S, E) in dtype,
+        the MoE aux loss summed over layers: a 0-d f32 tensor, None for
+        dense MLPs).  ``mask`` (B, S) reaches only the MoE's routing."""
         x = self.embed(tokens)
         remat = self.config.remat and torch.is_grad_enabled()
+        aux = None
         for block in self.blocks:
-            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
-        return layernorm(x, self.lnf_scale, self.lnf_bias)
+            if remat:
+                x, a = checkpoint(block, x, mask, use_reentrant=False)
+            else:
+                x, a = block(x, mask)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return layernorm(x, self.lnf_scale, self.lnf_bias), aux
 
     @property
     def head_weight(self):
@@ -219,12 +310,19 @@ def init(config: GPTConfig, generator: Optional[torch.Generator] = None,
         for blk in model.blocks:
             normal_(blk.qkv_kernel, std)
             normal_(blk.proj_kernel, resid_std)
-            normal_(blk.fc_kernel, std)
-            normal_(blk.out_kernel, resid_std)
+            if config.num_experts > 0:
+                normal_(blk.router, std)
+                normal_(blk.moe_in, std)
+                normal_(blk.moe_out, resid_std)
+                zeros = (blk.ln1_bias, blk.ln2_bias, blk.qkv_bias, blk.proj_bias)
+            else:
+                normal_(blk.fc_kernel, std)
+                normal_(blk.out_kernel, resid_std)
+                zeros = (blk.ln1_bias, blk.ln2_bias, blk.qkv_bias, blk.proj_bias,
+                         blk.fc_bias, blk.out_bias)
             for p in (blk.ln1_scale, blk.ln2_scale):
                 p.fill_(1.0)
-            for p in (blk.ln1_bias, blk.ln2_bias, blk.qkv_bias, blk.proj_bias,
-                      blk.fc_bias, blk.out_bias):
+            for p in zeros:
                 p.zero_()
         normal_(model.wte, std)
         normal_(model.wpe, 0.01)
@@ -233,23 +331,40 @@ def init(config: GPTConfig, generator: Optional[torch.Generator] = None,
     return model
 
 
-# Next-token cross-entropy: batch {"tokens": (B, S+1)} or {"inputs",
-# "targets"}, optional "mask"; chunked with config.xent_chunk.
-loss_fn = next_token_loss
+def loss_fn(model: GPT2, batch):
+    """Next-token cross-entropy, plus ``moe_aux_coeff`` times the aux loss
+    summed over layers where the blocks are MoE.  batch: {"tokens": (B,
+    S+1)} or {"inputs", "targets"}, optional "mask" (which also takes
+    padding tokens out of the MoE's routing); chunked with
+    config.xent_chunk."""
+    c = model.config
+    inputs, targets, mask = split_batch(batch)
+    x, aux = model.features_aux(inputs, mask)
+    loss = head_loss(model, x, targets, mask)
+    return loss + c.moe_aux_coeff * aux if c.num_experts > 0 else loss
 
 
 def num_params(config: GPTConfig) -> int:
     c = config
-    E, H, D, M = c.embed_dim, c.num_heads, c.head_dim, c.mlp_dim
-    per_layer = 4 * E + E * 3 * H * D + 3 * H * D + H * D * E + E + E * M + M + M * E + E
+    E, H, D, M, X = c.embed_dim, c.num_heads, c.head_dim, c.mlp_dim, c.num_experts
+    per_layer = 4 * E + E * 3 * H * D + 3 * H * D + H * D * E + E
+    if X > 0:
+        per_layer += E * X + 2 * X * E * M
+    else:
+        per_layer += E * M + M + M * E + E
     return (c.vocab_size + c.max_seq_len) * E + c.num_layers * per_layer + 2 * E
 
 
 def flops_per_token(config: GPTConfig, seq_len: Optional[int] = None) -> float:
     """Approximate training FLOPs/token: 6N + attention term, with N
     counting the tied ``wte`` (its head product is real work) and not the
-    position table.  A forward pass is a third of it."""
+    position table.  A forward pass is a third of it.  With experts, top-1
+    routing runs one expert's MLP a token, so 1/X of the experts'
+    parameters count."""
     c = config
     s = seq_len or c.max_seq_len
     n = num_params(c) - c.max_seq_len * c.embed_dim
+    if c.num_experts > 1:
+        moe_ffn = 2 * c.num_layers * c.num_experts * c.embed_dim * c.mlp_dim
+        n = n - moe_ffn + moe_ffn // c.num_experts
     return 6 * n + 12 * c.num_layers * c.embed_dim * s

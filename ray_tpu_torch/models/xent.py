@@ -48,21 +48,25 @@ def chunked_xent(x, head_weight, targets, mask, chunk: int, dtype):
     return -ll_sum / torch.clamp(m_sum, min=1.0)
 
 
-def next_token_loss(model, batch):
-    """Next-token cross-entropy of a language model with ``features``,
-    ``head`` and ``head_weight`` (GPT-2 and Llama).  batch: {"tokens":
-    (B, S+1)} or {"inputs", "targets"} each (B, S), with an optional (B, S)
-    "mask".  With config.xent_chunk set (and S divisible by it) the head and
-    softmax run per sequence chunk."""
-    c = model.config
+def split_batch(batch):
+    """(inputs, targets, mask) of a language-model batch: {"tokens": (B,
+    S+1)} or {"inputs", "targets"} each (B, S), with an optional (B, S)
+    "mask" (None without one)."""
     if "tokens" in batch:
         inputs = batch["tokens"][:, :-1]
         targets = batch["tokens"][:, 1:]
     else:
         inputs, targets = batch["inputs"], batch["targets"]
-    mask = batch.get("mask")
-    x = model.features(inputs)
-    if c.xent_chunk and inputs.shape[1] % c.xent_chunk == 0:
+    return inputs, targets, batch.get("mask")
+
+
+def head_loss(model, x, targets, mask):
+    """Mean next-token negative log-likelihood of features ``x`` (B, S, E)
+    through ``model``'s head (``head`` and ``head_weight``); with
+    config.xent_chunk set (and S divisible by it) the head and softmax run
+    per sequence chunk."""
+    c = model.config
+    if c.xent_chunk and targets.shape[1] % c.xent_chunk == 0:
         return chunked_xent(x, model.head_weight, targets, mask, c.xent_chunk, c.dtype)
     logits = model.head(x)
     # lse − target_logit in f32
@@ -72,3 +76,11 @@ def next_token_loss(model, batch):
         return -ll.mean()
     mask = mask.float()
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def next_token_loss(model, batch):
+    """Next-token cross-entropy of a language model with ``features``,
+    ``head`` and ``head_weight`` (GPT-2 and Llama); batch as
+    :func:`split_batch` reads it."""
+    inputs, targets, mask = split_batch(batch)
+    return head_loss(model, model.features(inputs), targets, mask)

@@ -207,7 +207,7 @@ class TestParityTraps:
         ref, _ = jax.jit(lambda x, p: jax_gpt2._block(x, p, jcfg))(jnp.asarray(x, jnp.bfloat16), layer0)
         ref = np.asarray(ref.astype(jnp.float32))
         with torch.inference_mode():
-            out = _port(np_params, cfg).blocks[0](torch.from_numpy(x).bfloat16())
+            out, _ = _port(np_params, cfg).blocks[0](torch.from_numpy(x).bfloat16())
         assert out.dtype == torch.bfloat16
         out = out.float().numpy()
         assert (out == ref).mean() > 0.85
@@ -234,8 +234,6 @@ class TestConfig:
         assert gpt2.flops_per_token(cfg, 512) == jax_gpt2.flops_per_token(jcfg, 512)
 
     def test_unported_options_raise(self):
-        with pytest.raises(NotImplementedError):
-            gpt2.GPT2(gpt2.GPTConfig.tiny(num_experts=2), device="cpu")
         with pytest.raises(NotImplementedError):
             gpt2.GPT2(gpt2.GPTConfig.tiny(attention_impl="ring"), device="cpu")
 
@@ -271,3 +269,166 @@ def test_flash_config_calls_the_flash_wrapper_at_any_head_dim(monkeypatch, embed
         out = model(torch.randint(0, 256, (2, 128), generator=torch.Generator().manual_seed(1)))
     assert torch.isfinite(out).all()
     assert calls == [(2, heads, 128, cfg.head_dim)] * cfg.num_layers
+
+
+# --- Mixture-of-Experts (num_experts > 0): the switch MLP of every block ---
+#
+# The tiny config with 4 experts, weights drawn as above (router included).
+# Capacity factor 1.25 (C = 40 of 128 tokens a row) and, for the overflow
+# case, 0.25 (C = 8: most tokens of a row pass an expert's buffer and take
+# only the residual).  f32: the same arithmetic up to summation order, held
+# to F32_TOL (logits, losses) and MOE_F32_GRAD (gradients, relative to each
+# leaf's norm; measured worst 1.6e-6, in the router).  bf16: a token whose
+# two top router probabilities lie within a bf16 rounding of each other can
+# choose another expert in either framework, and the tiny router's
+# probabilities are near 1/4 each, so both frameworks' bf16 gradients stand
+# 1-10% from the f32 gradients (the reference's own: up to 9.6%, in
+# moe_in).  So the port's bf16 gradients (and logits) are held to the
+# reference's f32 ones, at most MOE_BF16_RATIO times as far as the
+# reference's bf16 ones are (gradients: or the bf16 gradient tolerance of
+# the training tests, 3e-2, whichever is larger), and the bf16 loss to
+# BF16_TOL["loss"].
+MOE_EXPERTS = 4
+MOE_F32_GRAD = 1e-5
+MOE_BF16_RATIO = 1.25
+MOE_BF16_GRAD_FLOOR = 3e-2
+MOE_CAPACITY = {"cap1.25": 1.25, "cap0.25": 0.25}
+
+
+def _moe_configs(dtype, cap="cap1.25", **kw):
+    return _configs(dtype, num_experts=MOE_EXPERTS,
+                    moe_capacity_factor=MOE_CAPACITY[cap], **kw)
+
+
+@pytest.fixture(scope="module")
+def moe_params():
+    jcfg = jax_gpt2.GPTConfig.tiny(num_experts=MOE_EXPERTS)
+    shapes = jax.eval_shape(lambda: jax_gpt2.init(jax.random.key(0), jcfg))
+    rng = np.random.default_rng(0)
+
+    def draw(path, s):
+        base = 1.0 if "scale" in jax.tree_util.keystr(path) else 0.0
+        return (base + rng.standard_normal(s.shape) * 0.02).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def _moe_flat_grads(model):
+    out = {k: getattr(model, k).grad.numpy() for k in ("wte", "wpe", "lnf_scale", "lnf_bias")}
+    for name, _ in model.blocks[0].named_parameters():
+        out[f"blocks.{name}"] = np.stack([getattr(b, name).grad.numpy() for b in model.blocks])
+    return out
+
+
+def _jax_flat(tree):
+    out = {k: np.asarray(tree[k]) for k in ("wte", "wpe", "lnf_scale", "lnf_bias")}
+    out.update({f"blocks.{k}": np.asarray(v) for k, v in tree["blocks"].items()})
+    return out
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+@pytest.fixture(scope="module")
+def moe_jax(moe_params, batch):
+    """(dtype, cap, masked) → the reference's logits, loss and gradients."""
+    cache = {}
+
+    def get(dtype, cap, masked):
+        key = (dtype, cap, masked)
+        if key not in cache:
+            jcfg, _ = _moe_configs(dtype, cap, attention_impl="flash")
+            tokens, mask = batch
+            b = {"tokens": tokens, **({"mask": mask} if masked else {})}
+
+            def program(p):
+                loss, grads = jax.value_and_grad(lambda q: jax_gpt2.loss_fn(q, b, jcfg))(p)
+                return jax_gpt2.forward(p, tokens[:, :-1], jcfg), loss, grads
+
+            logits, loss, grads = jax.jit(program)(moe_params)
+            cache[key] = np.asarray(logits), float(loss), _jax_flat(jax.tree.map(np.asarray, grads))
+        return cache[key]
+
+    return get
+
+
+def _moe_port(moe_params, dtype, cap, masked, batch):
+    _, cfg = _moe_configs(dtype, cap, attention_impl="flash")
+    tokens, mask = batch
+    model = gpt2_params_from_jax(moe_params, cfg, device="cpu")
+    with torch.inference_mode():
+        logits = model(torch.from_numpy(tokens[:, :-1]).long())
+    b = {"tokens": torch.from_numpy(tokens)}
+    if masked:
+        b["mask"] = torch.from_numpy(mask)
+    loss = gpt2.loss_fn(model, b)
+    loss.backward()
+    return logits.numpy(), loss.item(), _moe_flat_grads(model)
+
+
+@pytest.mark.parametrize("cap,masked", [("cap1.25", False), ("cap1.25", True), ("cap0.25", False)],
+                         ids=["aux", "aux-mask", "overflow"])
+def test_moe_matches_jax_f32(moe_params, batch, moe_jax, cap, masked):
+    """Logits, loss with the aux term (and with a mask, which takes padding
+    tokens out of the routing) and every gradient, router included."""
+    ref_logits, ref_loss, ref_grads = moe_jax(torch.float32, cap, masked)
+    logits, loss, grads = _moe_port(moe_params, torch.float32, cap, masked, batch)
+    np.testing.assert_allclose(logits, ref_logits, **F32_TOL)
+    np.testing.assert_allclose(loss, ref_loss, **F32_TOL)
+    assert set(grads) == set(ref_grads) and "blocks.router" in grads
+    errs = {k: _rel(grads[k], ref_grads[k]) for k in ref_grads}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= MOE_F32_GRAD, (worst, errs[worst])
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["aux", "aux-mask"])
+def test_moe_matches_jax_bf16(moe_params, batch, moe_jax, masked):
+    ref_logits, ref_loss, ref_grads = moe_jax(torch.bfloat16, "cap1.25", masked)
+    f32_logits, _, f32_grads = moe_jax(torch.float32, "cap1.25", masked)
+    logits, loss, grads = _moe_port(moe_params, torch.bfloat16, "cap1.25", masked, batch)
+    # A token routed to another expert moves its logits past BF16_TOL (up
+    # to 0.064 measured, 0.16% of the elements): at least 99% stay within
+    # it, and the whole block is no farther from f32 than MOE_BF16_RATIO
+    # times the reference's own bf16 distance.
+    near = np.isclose(logits, ref_logits, **BF16_TOL["logits"])
+    assert near.mean() >= 0.99, near.mean()
+    assert _rel(logits, f32_logits) <= MOE_BF16_RATIO * _rel(ref_logits, f32_logits)
+    np.testing.assert_allclose(loss, ref_loss, **BF16_TOL["loss"])
+    for k, g32 in f32_grads.items():
+        bound = max(MOE_BF16_RATIO * _rel(ref_grads[k], g32), MOE_BF16_GRAD_FLOOR)
+        assert _rel(grads[k], g32) <= bound, (k, _rel(grads[k], g32), bound)
+
+
+def test_moe_capacity_overflow_drops_tokens(moe_params, batch):
+    """At capacity factor 0.25 (C = 8 of 128) tokens overflow their
+    expert's buffer; an overflowed token's MoE output is exactly zero, so
+    the block passes it through the residual, and each buffer holds at most
+    C tokens of a row."""
+    _, cfg = _moe_configs(torch.float32, "cap0.25")
+    blk = gpt2_params_from_jax(moe_params, cfg, device="cpu").blocks[0]
+    h = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 128, 64)).astype(np.float32))
+    C = gpt2.moe_capacity(cfg, 128)
+    assert C == 8
+    with torch.inference_mode():
+        _, _, expert, onehot, pos = gpt2.moe_route(h, blk.router, cfg)
+        out, aux = gpt2._moe_mlp(h, blk.router, blk.moe_in, blk.moe_out, cfg)
+    dropped = pos.amax(dim=-1) >= C
+    assert 0 < int(dropped.sum()) < dropped.numel()
+    assert torch.all(out[dropped] == 0) and torch.all(out[~dropped].abs().sum(-1) > 0)
+    kept = onehot * ((pos >= 0) & (pos < C))
+    assert int(kept.sum(dim=1).amax()) <= C
+    jcfg, _ = _moe_configs(torch.float32, "cap0.25")
+    layer0 = jax.tree.map(lambda a: a[0], moe_params["blocks"])
+    ref_out, ref_aux = jax.jit(lambda h, p: jax_gpt2._moe_mlp(h, p, jcfg))(h.numpy(), layer0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **F32_TOL)
+    np.testing.assert_allclose(float(aux), float(ref_aux), **F32_TOL)
+
+
+@pytest.mark.parametrize("name", ["tiny", "gpt2_124m"])
+def test_moe_counts_match_jax(name):
+    for experts in (1, 4, 8):
+        jcfg = getattr(jax_gpt2.GPTConfig, name)(num_experts=experts)
+        cfg = getattr(gpt2.GPTConfig, name)(num_experts=experts)
+        assert gpt2.num_params(cfg) == jax_gpt2.num_params(jcfg)
+        assert gpt2.flops_per_token(cfg, 512) == jax_gpt2.flops_per_token(jcfg, 512)

@@ -96,9 +96,27 @@ def test_serve_and_collective_import_loads_no_torch_or_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_train_import_loads_no_torch_or_jax():
+    """The Train library's driver side (trainer, executor, worker group,
+    session, checkpoint handle, configs) needs no torch: a worker loads it
+    with the loop it runs, the backend's process group and a state-dict
+    checkpoint inside the functions that use them."""
+    code = ("import sys, ray_tpu_torch.train, ray_tpu_torch.train.backend_executor; "
+            "print(sorted(m for m in ('torch', 'jax') if m in sys.modules))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"gpt2.py", "llama.py", "llm.py", "flash_attention.py", "chip_smoke.py"} <= names
+    assert {"gpt2.py", "llama.py", "llm.py", "flash_attention.py", "chip_smoke.py",
+            "vit.py"} <= names
+    train = {p.name for p in (REPO / "ray_tpu_torch" / "train").glob("*.py")}
+    assert {"__init__.py", "config.py", "checkpoint.py", "session.py", "backend.py",
+            "worker_group.py", "backend_executor.py", "trainer.py"} <= train
     runtime = {"api.py", "gcs.py", "raylet.py", "worker_main.py", "node.py", "runtime.py",
                "serialization.py", "config.py", "resources.py", "store.py", "gpu.py",
                "placement_group.py", "actor_pool.py"}
