@@ -93,9 +93,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
      deployment cut to the largest depth that fits, and says so.  The
      flash kernels' counts read 0 over both phases, in the driver and in
      the replica; after shutdown() no process of the driver remains.
-Phases 13-15 run after phase 7 and before phase 8, so that each phase's
-peak memory is its own:
-  13. [fit] (this slice's main path): the port's runtime starts and
+Phases 13-16 run after phase 7 and before phase 8, in the order 13, 16,
+14, 15, so that each phase's peak memory is its own; a line "[probe]"
+after phase 1 says whether pyarrow can be imported (for the Data
+library's port, whose blocks are Arrow tables):
+  13. [fit]: the port's runtime starts and
      TorchTrainer.fit() runs phase 6's training through the Train library,
      from a num_gpus=1 worker over an NCCL process group of one
      (ScalingConfig(num_workers=1, use_gpu=True),
@@ -134,12 +136,37 @@ peak memory is its own:
      with AdamW on one repeated batch: the first loss about ln(1024), the
      loss falling.  Prints images/s, step ms, FLOPs an image, the share of
      the bf16 peak, peak memory and one step's device time by kernel
-     group; the flash kernels' counts must read 0.
+     group; the flash kernels' counts must read 0;
+  16. [tune] (this slice's main path): the port's runtime starts and
+     (a) a Tuner runs [fit]'s loop without its self-kill as a function
+     trainable with tune.with_resources(loop, {"GPU": 1}) over
+     lr in grid_search([3e-4, 1e-3, 3e-3, 1e-2]) under
+     ASHAScheduler(max_t=8, grace_period=2, reduction_factor=2), metric
+     "loss", mode "min", no concurrency limit: the four trials queue on the
+     one card through the lease.  Each trial builds GPT-2-124M from phase
+     6's seed, runs phase 6's steps on phase 6's batch at its lr and
+     reports each step's loss, step ms and launches.  Every trial must see
+     the card in CUDA_VISIBLE_DEVICES; a trial's process must start after
+     the trial before it last reported, and no earlier trial's process may
+     live at its first step; every first loss must equal phase 6's bit for
+     bit, and the 3e-4 trial's losses phase 6's first ones; each trial
+     must run as many iterations as a fresh ASHAScheduler decides when
+     replayed on the recorded results in arrival order; each step must
+     launch each kernel once a layer.  (b) A Tuner over
+     TorchTrainer(ScalingConfig(num_workers=1, use_gpu=True)) of the same
+     loop at 4 steps with a state-dict checkpoint at the end, lr in
+     grid_search([3e-4, 1e-3]): each trial reports once, its actor sees
+     CUDA_VISIBLE_DEVICES="" and the trainer's worker "0"; the 3e-4 loss
+     must equal phase 6's fourth bit for bit; get_best_result picks the
+     lower loss and its checkpoint restores the weights the trial
+     checksummed.  Prints each trial's lr, iterations, start and first
+     report with its parts, step ms beside phase 6's and the gap between
+     trials; after shutdown() no process of the driver may remain.
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches on the training path (the forward kernel's in the
 runtime's GPU worker, "runtime_launches"; each kernel's in the trainer's
-worker, "fit_launches", and in [moe], "moe_launches"), error against its
-plain version,
+worker, "fit_launches", in the Tune trials' processes, "tune_launches",
+and in [moe], "moe_launches"), error against its plain version,
 time, the plain version's time, the library call's time and the card's
 bound; the last line is {"ok": true, "device": {...}}.  With no CUDA device
 it prints no result and exits 2.
@@ -150,6 +177,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -1727,6 +1755,261 @@ def _fit_checks(result, t_fit, fit_s, start_s, cfg, train_out, trial_dir, fs, sm
             "fit_s": fit_s, "losses_bitwise": True}
 
 
+# [tune]: the Tune library on the runtime.  (a) ASHA over function trials
+# of [fit]'s loop, each leasing the card, queued on it in turn; (b) a Tuner
+# over a TorchTrainer, whose worker leases the card while the trial actor
+# leases none.  Users sweeping a fine-tune's learning rate on one card run
+# this.
+TUNE_LRS = (3e-4, 1e-3, 3e-3, 1e-2)
+TUNE_ASHA = dict(max_t=8, grace_period=2, reduction_factor=2)
+TUNE_TRAINER_LRS = (3e-4, 1e-3)
+TUNE_TRAINER_STEPS = 4
+
+
+def _alive(pid):
+    """Whether process ``pid`` runs (a zombie has let go of its card)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _tune_loop(config):
+    """A [tune] trial's loop: [fit]'s loop without its self-kill, at
+    ``config["lr"]``.  GPT-2-124M from seed 1 on the leased card, [train]'s
+    steps on [train]'s batch, one report a step (loss, step ms, the
+    kernels' launches in the step and so far, the visible cards); the
+    first also carries the process's facts and, with
+    ``config["pid_dir"]``, the earlier trials' processes still alive then
+    (each trial leaves its pid there).  With ``config["ckpt"]`` the last
+    step reports a state-dict checkpoint of the model and its checksum."""
+    t_loop = time.time()
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import spmd
+
+    pid_dir = config.get("pid_dir")
+    if pid_dir:
+        open(os.path.join(pid_dir, str(os.getpid())), "w").close()
+    dev = config["device"]
+    t0 = time.time()
+    torch.zeros(1, device=dev)
+    _sync()
+    facts = {**_worker_facts(), "loop_entry": t_loop,
+             "cuda_init_s": time.time() - t0, "device_count": torch.cuda.device_count(),
+             "device_name": torch.cuda.get_device_name(0) if dev == "cuda" else None}
+    t0 = time.time()
+    model = gpt2.init(config["cfg"], torch.Generator(device=dev).manual_seed(1), dev)
+    step = spmd.compile_train_step(
+        gpt2.loss_fn, spmd.adamw(model.parameters(), config["lr"], weight_decay=0.1))
+    _sync()
+    facts["build_s"] = time.time() - t0
+    state = spmd.TrainState(0, model)
+    batch = {"tokens": config["tokens"].to(dev)}
+    total = {"fwd": 0, "dq": 0, "dkv": 0}
+    for i in range(config["steps"]):
+        _flash_counts_zero(fa)
+        _sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = metrics["loss"].item()
+        launches = _counts(fa)
+        total = {k: total[k] + launches[k] for k in total}
+        out = {"step": i, "lr": config["lr"], "loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
+               "launches": launches, "launches_total": total,
+               "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+        if i == 0:
+            others = [int(p) for p in os.listdir(pid_dir)] if pid_dir else []
+            out["facts"] = {**facts, "alive_before": [p for p in others if p != os.getpid() and _alive(p)]}
+        checkpoint = None
+        if config.get("ckpt") and i == config["steps"] - 1:
+            weights = model.state_dict()
+            out["checksum"] = _checksum(weights)
+            checkpoint = train.Checkpoint.from_state_dict({"model": weights})
+        train.report(out, checkpoint=checkpoint)
+    return state.step
+
+
+def _replayed_iterations(sched, results):
+    """Per trial: the results a controller driven by ``sched`` takes before
+    its first STOP, the results fed in arrival order."""
+    ran, stopped = {}, set()
+    for trial, m in sorted(results, key=lambda r: r[1]["_timestamp"]):
+        if trial in stopped:
+            continue
+        ran[trial] = ran.get(trial, 0) + 1
+        if sched.on_trial_result(trial, dict(m)) == "STOP":
+            stopped.add(trial)
+    return ran
+
+
+def phase_tune(fa, gpt2, cfg, tokens, train_out, smi):
+    """[tune]: (a) ASHA over four GPU-leased function trials of GPT-2-124M
+    queued on the one card, (b) a Tuner over a TorchTrainer of the same
+    loop; every loss against [train]'s."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch.core import api as rt_api
+
+    storage = train.RunConfig().resolved_storage_path()
+    names = (f"chip_smoke_tune_asha_{os.getpid()}", f"chip_smoke_tune_trainer_{os.getpid()}")
+    pid_dir = os.path.join(storage, names[0], "pids")
+    os.makedirs(pid_dir)
+    rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+    try:
+        t_a = time.time()
+        asha = tune.Tuner(
+            tune.with_resources(_tune_loop, {"GPU": 1}),
+            param_space={"lr": tune.grid_search(list(TUNE_LRS)), "cfg": cfg, "tokens": tokens.cpu(),
+                         "steps": TUNE_ASHA["max_t"], "device": DEVICE, "pid_dir": pid_dir},
+            tune_config=tune.TuneConfig(metric="loss", mode="min", scheduler=tune.ASHAScheduler(**TUNE_ASHA)),
+            run_config=train.RunConfig(name=names[0]),
+        ).fit()
+        asha_s = time.time() - t_a
+        t_b = time.time()
+        over_trainer = tune.Tuner(
+            train.TorchTrainer(
+                _tune_loop,
+                train_loop_config={"cfg": cfg, "tokens": tokens.cpu(), "steps": TUNE_TRAINER_STEPS,
+                                   "device": DEVICE, "ckpt": True, "lr": TUNE_TRAINER_LRS[0]},
+                scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True)),
+            param_space={"train_loop_config": {"lr": tune.grid_search(list(TUNE_TRAINER_LRS))}},
+            tune_config=tune.TuneConfig(metric="loss", mode="min"),
+            run_config=train.RunConfig(name=names[1]),
+        ).fit()
+        trainer_s = time.time() - t_b
+        best = over_trainer.get_best_result(metric="loss", mode="min")
+        restored = best.checkpoint.to_state_dict()["model"] if best.checkpoint is not None else None
+    finally:
+        _shutdown_checked(rt, rt_api, "tune")
+    try:
+        a = _tune_asha_checks(tune, asha, t_a, asha_s, cfg, train_out, smi)
+        b = _tune_trainer_checks(over_trainer, best, restored, trainer_s, cfg, train_out, smi)
+    finally:
+        for name in names:
+            shutil.rmtree(os.path.join(storage, name), ignore_errors=True)
+    _log("tune", "shutdown(): no process of the driver remains; the trial dirs are removed")
+    launches = {k: a["launches"][k] + b["launches"][k] for k in ("fwd", "dq", "dkv")}
+    return {"asha": a, "trainer": b, "launches": launches}
+
+
+def _tune_asha_checks(tune, grid, t_fit, fit_s, cfg, train_out, smi):
+    per_step = {"fwd": cfg.num_layers, "dq": cfg.num_layers, "dkv": cfg.num_layers}
+    _require(not grid.errors, f"[tune] ASHA trials failed: {grid.errors}")
+    trials = []
+    for r in grid:
+        hist = r.metrics_dataframe
+        _require(hist and hist[0]["step"] == 0 and "facts" in hist[0], f"[tune] {r.path} reported {hist}")
+        trials.append({"path": r.path, "hist": hist, "facts": hist[0]["facts"], "lr": hist[0]["lr"]})
+        _check_worker(hist[0]["facts"], f"[tune] trial lr={hist[0]['lr']}")
+    _require(sorted(t["lr"] for t in trials) == sorted(TUNE_LRS), f"[tune] trials {[t['lr'] for t in trials]}")
+    # Every trial's lease: the card, one of it; the first loss is [train]'s.
+    for t in trials:
+        f = t["facts"]
+        _require(f["visible"] == "0" and f["device_count"] == 1,
+                 f"[tune] trial lr={t['lr']} sees CUDA_VISIBLE_DEVICES={f['visible']!r}, "
+                 f"{f['device_count']} card(s)")
+        _require(t["hist"][0]["loss"] == train_out["losses"][0],
+                 f"[tune] trial lr={t['lr']}: first loss {t['hist'][0]['loss']!r}, "
+                 f"[train]'s {train_out['losses'][0]!r}")
+        bad = [(m["step"], m["launches"]) for m in t["hist"] if m["launches"] != per_step]
+        _require(not bad, f"[tune] trial lr={t['lr']}: steps whose launches were not {per_step}: {bad}")
+    order = sorted(trials, key=lambda t: t["facts"]["loop_entry"])
+    # [train]'s lr: its losses are [train]'s; the first trial to reach each
+    # rung survives it, so run first it runs to max_t.
+    base = next(t for t in trials if t["lr"] == 3e-4)
+    got = [m["loss"] for m in base["hist"]]
+    _require(got == train_out["losses"][:len(got)] and (len(got) == TUNE_ASHA["max_t"] or base is not order[0]),
+             f"[tune] the 3e-4 trial's losses {got} are not [train]'s first {TUNE_ASHA['max_t']} "
+             f"{train_out['losses'][:TUNE_ASHA['max_t']]}")
+    # The leases in turn: a trial's loop starts after the trial before it
+    # last reported, and no earlier trial's process lives at its first
+    # step.  (Loop entry, not the process's start: /proc gives that to the
+    # second only.)
+    for prev, nxt in zip(order, order[1:]):
+        _require(nxt["facts"]["loop_entry"] > prev["hist"][-1]["_timestamp"],
+                 f"[tune] trial lr={nxt['lr']} entered its loop at {nxt['facts']['loop_entry']:.3f}, before "
+                 f"trial lr={prev['lr']} last reported at {prev['hist'][-1]['_timestamp']:.3f}")
+    for t in trials:
+        _require(not t["facts"]["alive_before"],
+                 f"[tune] trial lr={t['lr']}: earlier trials' processes alive at its first step: "
+                 f"{t['facts']['alive_before']}")
+    ran = {t["path"]: len(t["hist"]) for t in trials}
+    replay = _replayed_iterations(tune.ASHAScheduler(metric="loss", mode="min", **TUNE_ASHA),
+                                  [(t["path"], m) for t in trials for m in t["hist"]])
+    _require(ran == replay, f"[tune] iterations {ran}, the ASHA replay decides {replay}")
+    launches = {k: sum(m["launches"][k] for t in trials for m in t["hist"]) for k in per_step}
+
+    _log("tune", f"{smi}: (a) ASHA(max_t={TUNE_ASHA['max_t']}, grace {TUNE_ASHA['grace_period']}, "
+                 f"rf {TUNE_ASHA['reduction_factor']}) over {len(trials)} trials with {{'GPU': 1}} in "
+                 f"{fit_s:.3f} s, run in the order lr=" + ", ".join(f"{t['lr']:g}" for t in order)
+                 + f"; iterations equal a fresh ASHA's replay; leases in turn, every first loss [train]'s, "
+                 f"the 3e-4 trial's {len(got)} losses [train]'s bit for bit")
+    prev = None
+    out = []
+    for t in order:
+        f, h = t["facts"], t["hist"]
+        # The trial's start: fit() for the first, the last report of the
+        # trial before it for the others (its lease waited for that one's).
+        start = prev["hist"][-1]["_timestamp"] if prev else t_fit
+        steady = [m["step_ms"] for m in h[1:]] or [h[0]["step_ms"]]
+        ms = _spread(steady)
+        _log("tune", f"trial lr={t['lr']:g}: {len(h)} iterations (loss {h[-1]['loss']:.6f}); first report "
+                     f"{h[0]['_timestamp'] - start:.3f} s after {'the trial before it last reported' if prev else 'fit()'}: "
+                     f"to the loop {f['loop_entry'] - start:.3f} s (lease, worker start, imports), CUDA init "
+                     f"{f['cuda_init_s']:.3f}, build {f['build_s']:.3f}, first step {h[0]['step_ms'] / 1e3:.3f} s; "
+                     f"step {ms[0]:.3f} ms (median of {len(steady)}, quartiles {ms[1]:.3f}..{ms[2]:.3f}) against "
+                     f"[train]'s {train_out['step_ms']:.3f} ms")
+        out.append({"lr": t["lr"], "iterations": len(h), "to_loop_s": f["loop_entry"] - start,
+                    "first_report_s": h[0]["_timestamp"] - start, "step_ms": ms[0]})
+        prev = t
+    _log("tune", f"(a) kernel launches over the trials {launches} ({cfg.num_layers} of each per step, "
+                 f"{sum(len(t['hist']) for t in trials)} steps)")
+    return {"trials": out, "launches": launches, "fit_s": fit_s, "train_step_ms": train_out["step_ms"]}
+
+
+def _tune_trainer_checks(grid, best, restored, fit_s, cfg, train_out, smi):
+    per_step = {"fwd": cfg.num_layers, "dq": cfg.num_layers, "dkv": cfg.num_layers}
+    _require(not grid.errors and len(grid) == len(TUNE_TRAINER_LRS),
+             f"[tune] trainer trials: {len(grid)}, errors {grid.errors}")
+    out = []
+    for r, lr in zip(grid, TUNE_TRAINER_LRS):
+        m = r.metrics
+        _require(len(r.metrics_dataframe) == 1, f"[tune] trainer trial lr={lr} reported "
+                                                f"{len(r.metrics_dataframe)} times, not once")
+        _require(m["trial_cuda_visible_devices"] == "" and m["step"] == TUNE_TRAINER_STEPS - 1,
+                 f"[tune] trainer trial lr={lr}: the trial actor sees CUDA_VISIBLE_DEVICES="
+                 f"{m['trial_cuda_visible_devices']!r}; last step {m['step']}")
+        _require(m["visible"] == "0", f"[tune] trainer trial lr={lr}: the trainer's worker sees "
+                                      f"CUDA_VISIBLE_DEVICES={m['visible']!r}")
+        want = {k: TUNE_TRAINER_STEPS * n for k, n in per_step.items()}
+        _require(m["launches"] == per_step and m["launches_total"] == want,
+                 f"[tune] trainer trial lr={lr}: launches {m['launches']} in the last step, "
+                 f"{m['launches_total']} in all; expected {per_step} a step")
+        out.append({"lr": lr, "loss": m["loss"], "launches": m["launches_total"]})
+    base = out[TUNE_TRAINER_LRS.index(3e-4)]
+    _require(base["loss"] == train_out["losses"][TUNE_TRAINER_STEPS - 1],
+             f"[tune] the 3e-4 trainer trial's loss {base['loss']!r} is not [train]'s step-"
+             f"{TUNE_TRAINER_STEPS} loss {train_out['losses'][TUNE_TRAINER_STEPS - 1]!r}")
+    _require(best.metrics["loss"] == min(o["loss"] for o in out) and best.metrics["loss"] != max(
+        o["loss"] for o in out), f"[tune] get_best_result picked {best.metrics['loss']!r} of {out}")
+    _require(restored is not None and _checksum(restored) == best.metrics["checksum"],
+             "[tune] the best result's checkpoint does not restore the trial's weights")
+    _log("tune", f"{smi}: (b) Tuner over TorchTrainer(ScalingConfig(num_workers=1, use_gpu=True)), "
+                 f"{TUNE_TRAINER_STEPS} steps a trial, in {fit_s:.3f} s: " + ", ".join(
+                     f"lr={o['lr']:g} loss {o['loss']:.6f}" for o in out)
+                 + f"; each reported once; trial actors leased no card, the trainer's worker card 0; "
+                 f"the 3e-4 loss is [train]'s step "
+                 f"{TUNE_TRAINER_STEPS} bit for bit; best lr={TUNE_TRAINER_LRS[[o['loss'] for o in out].index(best.metrics['loss'])]:g}, "
+                 f"its checkpoint restores the checksummed weights")
+    launches = {k: sum(o["launches"][k] for o in out) for k in per_step}
+    return {"trials": out, "launches": launches, "fit_s": fit_s}
+
+
 def _moe_hook(gpt2, record):
     """Wraps gpt2._moe_mlp so that each call records its input and its
     routing: (h, tokens routed, tokens past capacity).  Returns the
@@ -2348,6 +2631,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = phase_device_and_build(_build)
+    # For the Data library's port, whose blocks are Arrow tables.
+    _log("probe", f"pyarrow importable: {importlib.util.find_spec('pyarrow') is not None}")
     fwd_err = phase_check(fa)
     bwd_err = phase_check_bwd(fa)
     phase_tolerance_floor(fa)
@@ -2382,17 +2667,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     runtime = phase_runtime(fa, gpt2, cfg, tokens[0], smi)
 
-    # This slice's main path: the same training through the Train library
-    # from a GPU-leased worker, with a checkpoint and a gang restart; then
-    # GPT-2 with experts and ViT-B/16.
+    # The same training through the Train library from a GPU-leased
+    # worker, with a checkpoint and a gang restart; then (this slice's main
+    # path) Tune trials of it queued on the card, and a Tuner over the
+    # trainer; then GPT-2 with experts and ViT-B/16.
     t0 = time.perf_counter()
     fit = phase_fit(fa, gpt2, cfg, tokens[0], train, smi)
+    t_tune = time.perf_counter()
+    tune_out = phase_tune(fa, gpt2, cfg, tokens[0], train, smi)
+    _log("done", f"[tune] {time.perf_counter() - t_tune:.1f} s")
     moe = phase_moe(fa, gpt2, spmd, tokens[0], gpt2.GPTConfig.gpt2_124m(
         num_experts=MOE_EXPERTS, attention_impl="flash", remat=False, scan_unroll=12))
     torch.cuda.empty_cache()
     vit_out = phase_vit(fa, vit, smi, vit.ViTConfig.vit_b16())
     torch.cuda.empty_cache()
-    _log("done", f"[fit], [moe] and [vit] {time.perf_counter() - t0:.1f} s")
+    _log("done", f"[fit], [tune], [moe] and [vit] {time.perf_counter() - t0:.1f} s")
 
     # The serving path (Mistral-7B through the LLM engine), after the GPT-2
     # state is freed so that its peak memory is its own.
@@ -2425,13 +2714,15 @@ def main() -> int:
     ]
     # The forward kernel's launches in the GPU-leased worker (the runtime path).
     kernels[0]["runtime_launches"] = runtime["launches"]
-    # Each kernel's launches in the trainer's worker ([fit]) and in [moe].
+    # Each kernel's launches in the trainer's worker ([fit]), in the Tune
+    # trials' processes ([tune] (a) and (b)) and in [moe].
     for entry, key in zip(kernels, ("fwd", "dq", "dkv")):
         entry["fit_launches"] = fit["launches"][key]
+        entry["tune_launches"] = tune_out["launches"][key]
         entry["moe_launches"] = moe["launches"][key]
     print(json.dumps({"forward_ms": fwd, "forward_path_fwd_launches": fwd_launches,
                       "train_step_ms": train["step_ms"], "train_tokens_per_s": train["tokens_per_s"],
-                      "head_backward_ms": head, "runtime": runtime, "fit": fit, "moe": moe,
+                      "head_backward_ms": head, "runtime": runtime, "fit": fit, "tune": tune_out, "moe": moe,
                       "vit": vit_out, **llama_out, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -110,6 +110,19 @@ def test_train_import_loads_no_torch_or_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_tune_import_loads_no_torch_or_jax():
+    """The Tune library (searchers, schedulers, the controller, the Tuner)
+    needs no torch in the driver or in a trial actor: a trial's loop, or
+    the nested trainer's worker, loads it."""
+    code = ("import sys, ray_tpu_torch.tune, ray_tpu_torch.tune.tune_controller; "
+            "print(sorted(m for m in ('torch', 'jax') if m in sys.modules))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"gpt2.py", "llama.py", "llm.py", "flash_attention.py", "chip_smoke.py",
@@ -117,6 +130,9 @@ def test_port_files_found():
     train = {p.name for p in (REPO / "ray_tpu_torch" / "train").glob("*.py")}
     assert {"__init__.py", "config.py", "checkpoint.py", "session.py", "backend.py",
             "worker_group.py", "backend_executor.py", "trainer.py"} <= train
+    tune = {p.relative_to(REPO).as_posix() for p in PORT_FILES if p.parent.name == "tune"}
+    assert tune == {f"ray_tpu_torch/tune/{n}.py" for n in
+                    ("__init__", "search", "schedulers", "tune_controller", "tuner")}
     runtime = {"api.py", "gcs.py", "raylet.py", "worker_main.py", "node.py", "runtime.py",
                "serialization.py", "config.py", "resources.py", "store.py", "gpu.py",
                "placement_group.py", "actor_pool.py"}

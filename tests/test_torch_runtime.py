@@ -9,6 +9,7 @@ two GPUs are declared and none exists, so the lease seam is checked by the
 """
 
 import contextlib
+import itertools
 import os
 import pickle
 import pickletools
@@ -40,6 +41,31 @@ from ray_tpu_torch.models.convert import gpt2_params_from_jax
 
 # Port-only env that would change what a cluster sees: cleared around each.
 _GPU_ENV = ("CUDA_VISIBLE_DEVICES", "RT_GPU_VISIBLE_DEVICES", "RT_GPU_COUNT_OVERRIDE")
+
+
+def _inherited_env():
+    """The env this module's clusters do not inherit: the GPU variables,
+    and every ``RT_*`` setting another test file left in this process.
+    The port's config reads the same ``RT_*`` names as the reference's:
+    the JAX package's ``bench.py``, which ``tests/test_taskplane_batching.py``
+    imports, sets ``RT_MAX_TASKS_IN_FLIGHT_PER_WORKER=10`` for good, and a
+    client so set pipelines a class's tasks onto one lease instead of
+    asking for a lease a task."""
+    return sorted({*_GPU_ENV, *(k for k in os.environ if k.startswith("RT_"))})
+
+
+@contextlib.contextmanager
+def runtime_defaults():
+    """The port's config at its defaults while a cluster runs: the
+    inherited env is removed and the driver's cached config values are
+    dropped, before and after (then the env comes back)."""
+    saved = {k: os.environ.pop(k) for k in _inherited_env() if k in os.environ}
+    port_config.cfg.reset()
+    try:
+        yield
+    finally:
+        os.environ.update(saved)
+        port_config.cfg.reset()
 
 
 def _numpy_objects():
@@ -222,40 +248,71 @@ def _functions_by_value():
 
 @pytest.fixture
 def gpu_env(monkeypatch):
-    """Clears the port's GPU env for a cluster's lifetime; the driver's
-    cached config value of the override is dropped before and after."""
-    for k in _GPU_ENV:
-        monkeypatch.delenv(k, raising=False)
-    port_config.cfg._values.pop("gpu_count_override", None)
-    yield monkeypatch
-    port_config.cfg._values.pop("gpu_count_override", None)
+    """The runtime's defaults (``runtime_defaults``) for a cluster's
+    lifetime; the test sets the GPU env it wants through the monkeypatch."""
+    with runtime_defaults():
+        yield monkeypatch
+        monkeypatch.undo()  # before the inherited env comes back
 
 
 @pytest.fixture(scope="class")
 def cluster():
-    saved = {k: os.environ.pop(k) for k in _GPU_ENV if k in os.environ}
-    try:
+    with runtime_defaults():
         rt.init(num_cpus=2, num_gpus=2, log_to_driver=False)
         with _functions_by_value():
             yield
         rt.shutdown()
         assert _no_port_children_left(), [_cmdline(p) for p in _port_children()]
-    finally:
-        os.environ.update(saved)
+
+
+def test_clusters_start_from_the_runtime_defaults(monkeypatch):
+    """A pipelining setting left in the env by another file's imports (as
+    bench.py leaves RT_MAX_TASKS_IN_FLIGHT_PER_WORKER=10) and already read
+    into the driver's config does not reach a cluster of this module, and
+    is back once the cluster is gone."""
+    monkeypatch.setenv("RT_MAX_TASKS_IN_FLIGHT_PER_WORKER", "10")
+    port_config.cfg.reset()
+    assert port_config.cfg.max_tasks_in_flight_per_worker == 10
+    with runtime_defaults():
+        assert "RT_MAX_TASKS_IN_FLIGHT_PER_WORKER" not in os.environ
+        assert port_config.cfg.max_tasks_in_flight_per_worker == 1
+    assert os.environ["RT_MAX_TASKS_IN_FLIGHT_PER_WORKER"] == "10"
+    monkeypatch.delenv("RT_MAX_TASKS_IN_FLIGHT_PER_WORKER")
+    port_config.cfg.reset()
+
+
+# The barrier's wait: long enough for any worker start under load, and
+# inside the tests' 120-s get.
+BARRIER_S = 90
 
 
 def _hold(seconds, barrier=None, n=2):
     """Holds a lease for ``seconds``.  With a ``barrier`` dir, it first
-    waits (30 s at most) until ``n`` worker processes have entered, so the
-    leases that pass it were held at once, however slowly workers start."""
+    waits (BARRIER_S at most) until ``n`` worker processes have entered, so
+    the leases that pass it were held at once, however slowly workers
+    start.  Returns the cards, the times it started and ended, and whether
+    it met the barrier."""
     t0 = time.time()
+    met = True
     if barrier is not None:
         open(os.path.join(barrier, str(os.getpid())), "w").close()
-        deadline = time.time() + 30
+        deadline = time.time() + BARRIER_S
         while len(os.listdir(barrier)) < n and time.time() < deadline:
             time.sleep(0.02)
+        met = len(os.listdir(barrier)) >= n
     time.sleep(seconds)
-    return os.environ.get("CUDA_VISIBLE_DEVICES"), t0, time.time()
+    return os.environ.get("CUDA_VISIBLE_DEVICES"), t0, time.time(), met
+
+
+def _check_leases(holds, n_cards):
+    """What the raylet guarantees, whatever order the holds started in:
+    holds whose (t0, t1) intervals overlap hold different cards, and never
+    more holds overlap than the node has cards."""
+    for a, b in itertools.combinations(holds, 2):
+        if a[1] < b[2] and b[1] < a[2]:
+            assert a[0] != b[0], (a, b)
+    for a in holds:
+        assert sum(b[1] <= a[1] < b[2] for b in holds) <= n_cards, holds
 
 
 def _worker_facts():
@@ -316,15 +373,16 @@ class TestOnCluster:
         assert rt.get(checksum.remote(ref)) == (t.float().sum().item(), t.dtype, tuple(t.shape))
 
     def test_gpu_leases(self, tmp_path):
-        """Two concurrent one-GPU leases see cards 0 and 1; a third waits
-        for a card (they ask for no CPU, so only cards limit them); a lease
-        without GPUs sees none, and more GPUs than the node has fail at
-        once as infeasible."""
+        """Two concurrent one-GPU leases see cards 0 and 1 (the barrier
+        shows two were held at once); a third waits for a card (they ask for
+        no CPU, so only cards limit them): no two held at once share a card
+        and never three are held; a lease without GPUs sees none, and more
+        GPUs than the node has fail at once as infeasible."""
         hold = rt.remote(num_gpus=1, num_cpus=0)(_hold)
-        out = sorted(rt.get([hold.remote(1.0, str(tmp_path)) for _ in range(3)], timeout=120),
-                     key=lambda r: r[1])
-        assert {out[0][0], out[1][0]} == {"0", "1"} and out[2][0] in ("0", "1")
-        assert out[2][1] >= min(out[0][2], out[1][2]) - 0.05, out
+        out = rt.get([hold.remote(1.0, str(tmp_path)) for _ in range(3)], timeout=120)
+        assert all(r[3] for r in out), f"the barrier was not met: {out}"
+        assert {r[0] for r in out} == {"0", "1"}, out
+        _check_leases(out, 2)
         assert rt.get(rt.remote(num_gpus=0)(_hold).remote(0))[0] == ""
         with pytest.raises(rt.TaskError, match="infeasible"):
             rt.get(rt.remote(num_gpus=3)(_hold).remote(0), timeout=30)
@@ -374,7 +432,9 @@ def test_leases_name_the_drivers_cards(gpu_env, tmp_path):
         hold = rt.remote(num_gpus=1, num_cpus=0)(_hold)
         with _functions_by_value():
             seen = rt.get([hold.remote(0.5, str(tmp_path)) for _ in range(2)], timeout=120)
+        assert all(r[3] for r in seen), f"the barrier was not met: {seen}"
         assert {r[0] for r in seen} == {"3", "5"}
+        _check_leases(seen, 2)
     finally:
         rt.shutdown()
     assert _no_port_children_left()
