@@ -137,7 +137,7 @@ library's port, whose blocks are Arrow tables):
      loss falling.  Prints images/s, step ms, FLOPs an image, the share of
      the bf16 peak, peak memory and one step's device time by kernel
      group; the flash kernels' counts must read 0;
-  16. [tune] (this slice's main path): the port's runtime starts and
+  16. [tune]: the port's runtime starts and
      (a) a Tuner runs [fit]'s loop without its self-kill as a function
      trainable with tune.with_resources(loop, {"GPU": 1}) over
      lr in grid_search([3e-4, 1e-3, 3e-3, 1e-2]) under
@@ -162,11 +162,35 @@ library's port, whose blocks are Arrow tables):
      checksummed.  Prints each trial's lr, iterations, start and first
      report with its parts, step ms beside phase 6's and the gap between
      trials; after shutdown() no process of the driver may remain.
+Phase 17 runs after phase 6 and before phase 7, phase 18 last (its
+spawned ranks leave multiprocessing's resource tracker running until the
+script exits, and phases 7, 11-13 and 16 require that no process this
+script started outlive their shutdown()):
+  17. [spmd] (this slice's main path): phase 6's training through the
+     mesh path: an NCCL process group of one (tcp://localhost, a free
+     port), make_mesh(MeshConfig(dp=1), device_type="cuda") (one torch mesh
+     dim, "dp", of one rank), sharded_init of GPT-2-124M from phase 6's
+     seed with param_logical_axes (every parameter a DTensor laid out as
+     the rule table says, AdamW's moments too), shard_batch of phase 6's
+     batch and the mesh's compile_train_step, 3 + 10 steps, with the flash
+     kernels reached through local_map (sharded_flash_attention_bhsd).
+     Each step must launch each kernel once a layer; every loss must equal
+     phase 6's of the same step bit for bit (SPMD_LOSS_TOL; the largest
+     difference is printed).  Prints step ms, tokens/s and peak memory
+     beside phase 6's; the process group is destroyed after it;
+  18. [dryrun]: dryrun_multigpu(4, device_type="cpu"), four gloo ranks on
+     the host's CPU (the card's machine has one GPU, and NCCL puts one
+     rank on a card):
+     ring attention over sp = 2 with tp = 2, GPT-2 with experts over
+     ep = 2 x tp = 2, tp-sharded Llama prefill and decode, ViT over
+     fsdp = 2 x tp = 2 and the gang's cross-process sum, each pass's OK
+     line printed; its losses are CPU numbers.
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches on the training path (the forward kernel's in the
 runtime's GPU worker, "runtime_launches"; each kernel's in the trainer's
 worker, "fit_launches", in the Tune trials' processes, "tune_launches",
-and in [moe], "moe_launches"), error against its plain version,
+in [moe], "moe_launches", and through the mesh path, "spmd_launches"),
+error against its plain version,
 time, the plain version's time, the library call's time and the card's
 bound; the last line is {"ok": true, "device": {...}}.  With no CUDA device
 it prints no result and exits 2.
@@ -793,7 +817,97 @@ def phase_train(fa, gpt2, spmd, model, tokens):
                   f"{flops / (ms / 1e3) / BF16_FLOPS:.4f} of the bf16 peak; peak memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches, step, state, dict(step_ms=ms, tokens_per_s=n_tokens / ms * 1e3,
-                                       losses=losses)
+                                       losses=losses, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+# [spmd]'s losses against [train]'s: the same weights, batch and
+# arithmetic on one rank (the mesh's collectives are identities, its
+# DTensors hold the same storage, the kernels run on the same blocks and
+# AdamW runs the same foreach kernels), so they must be equal bit for bit.
+SPMD_LOSS_TOL = 0.0
+DRYRUN_RANKS = 4
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_spmd(fa, gpt2, cfg, tokens, train_out, smi):
+    """[spmd]: [train]'s 3 + 10 steps through make_mesh, sharded_init,
+    shard_batch and the mesh's compile_train_step over an NCCL group of one."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import mesh as mesh_mod
+    from ray_tpu_torch.parallel import spmd
+
+    dist.init_process_group("nccl" if DEVICE == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.make_mesh(mesh_mod.MeshConfig(dp=1), device_type=DEVICE)
+        _require(mesh.torch_axes == ("dp",) and mesh.torch_mesh.size() == 1,
+                 f"the one-card mesh is {mesh}, expected one rank over 'dp'")
+        logical = gpt2.param_logical_axes(cfg)
+        state = spmd.sharded_init(
+            mesh, lambda: gpt2.init(cfg, torch.Generator(device=DEVICE).manual_seed(1), DEVICE), logical)
+        opt = spmd.adamw(state.params.parameters(), 3e-4, weight_decay=0.1)
+        step = spmd.compile_train_step(gpt2.loss_fn, opt)
+        batch = spmd.shard_batch(mesh, {"tokens": tokens})
+        losses, samples = [], []
+        torch.cuda.reset_peak_memory_stats()
+        _flash_counts_zero(fa)
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            before = _counts(fa)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"].item())
+            samples.append((time.perf_counter() - t0) * 1e3)
+            per_step = {k: v - before[k] for k, v in _counts(fa).items()}
+            _require(all(n == cfg.num_layers for n in per_step.values()),
+                     f"[spmd] step {i}: launches {per_step}, expected {cfg.num_layers} of each")
+        launches = _counts(fa)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        wrong = spmd.layout_errors(mesh, state.params, logical, opt)
+        _require(not wrong, f"[spmd] parameters or moments not laid out by the rules: {wrong}")
+    finally:
+        mesh_mod.set_current_mesh(None)
+        dist.destroy_process_group()
+    diffs = [abs(a - b) for a, b in zip(losses, train_out["losses"])]
+    ms, q25, q75 = _spread(samples[TRAIN_WARMUP:])
+    n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
+    _log("spmd", "loss " + " ".join(f"{x:.4f}" for x in losses))
+    _log("spmd", f"largest |loss - [train]'s| over {len(diffs)} steps: {max(diffs):.3g} "
+                 f"({'bit for bit' if max(diffs) == 0 else 'not bit for bit'}; bound "
+                 f"{SPMD_LOSS_TOL}); kernel launches {launches} ({cfg.num_layers} of each per step)")
+    _log("spmd", f"{smi}: mesh {mesh} step {ms:.3f} ms (median of {TRAIN_STEPS}, quartiles "
+                 f"{q25:.3f}..{q75:.3f}) beside [train]'s {train_out['step_ms']:.3f} ms; "
+                 f"{n_tokens / ms * 1e3:.0f} tokens/s beside {train_out['tokens_per_s']:.0f}; peak memory "
+                 f"{peak:.2f} GiB beside [train]'s {train_out['peak_gib']:.2f} GiB")
+    _require(max(diffs) <= SPMD_LOSS_TOL, f"[spmd] losses differ from [train]'s by up to {max(diffs)}")
+    _require(losses[-1] < losses[0] - 0.1, f"[spmd] loss did not fall: {losses}")
+    return {"launches": launches, "losses": losses, "max_loss_diff": max(diffs), "step_ms": ms,
+            "tokens_per_s": n_tokens / ms * 1e3, "peak_gib": peak}
+
+
+def phase_dryrun():
+    """[dryrun]: dryrun_multigpu over gloo ranks on the host's CPU."""
+    from ray_tpu_torch.dryrun import dryrun_multigpu
+
+    t0 = time.perf_counter()
+    lines = dryrun_multigpu(DRYRUN_RANKS, device_type="cpu")
+    for line in lines:
+        _log("dryrun", line)
+    passes = [line.split(":")[0] for line in lines]
+    _require(passes == ["dryrun_multigpu OK", "dryrun_multigpu MoE OK", "dryrun_multigpu decode OK",
+                        "dryrun_multigpu vit OK", "dryrun_multigpu distributed OK"],
+             f"[dryrun] passes {passes}")
+    _log("dryrun", f"{len(lines)} passes over {DRYRUN_RANKS} gloo ranks on the CPU in "
+                   f"{time.perf_counter() - t0:.1f} s (losses are CPU numbers)")
+    return lines
 
 
 def phase_grad_flash_vs_dense(gpt2, model, tokens):
@@ -2016,12 +2130,12 @@ def _moe_hook(gpt2, record):
     original to restore."""
     orig = gpt2._moe_mlp
 
-    def wrapped(h, router, moe_in, moe_out, config, mask=None):
+    def wrapped(h, router, moe_in, moe_out, config, mask=None, **mesh):
         with torch.no_grad():
             _, _, _, onehot, pos = gpt2.moe_route(h, router, config, mask)
             C = gpt2.moe_capacity(config, h.shape[1])
             record.append((h.detach(), int(onehot.sum()), int(((pos >= C) & (onehot > 0)).sum())))
-        return orig(h, router, moe_in, moe_out, config, mask)
+        return orig(h, router, moe_in, moe_out, config, mask, **mesh)
 
     gpt2._moe_mlp = wrapped
     return orig
@@ -2652,7 +2766,7 @@ def main() -> int:
     with torch.inference_mode():
         phase_profile(lambda: model(x), "one flash forward", fwd["flash"])
 
-    # The training path (this slice's main path), from fresh weights.
+    # The training path, from fresh weights.
     model = gpt2.init(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
     phase_grad_flash_vs_dense(gpt2, model, tokens[1])
     launches, step, state, train = phase_train(fa, gpt2, spmd, model, tokens[0])
@@ -2661,16 +2775,21 @@ def main() -> int:
     phase_profile(lambda: step(state, {"tokens": tokens[0]}), "one train step", train["step_ms"], top=10,
                   expect={f"flash_{k}_wgmma_kernel": cfg.num_layers for k in ("fwd", "dq", "dkv")})
 
-    # The runtime path (this slice's): the same GPT-2-124M, from seed 0,
-    # through the port's runtime into a GPU-leased worker.
     del model, state, step, x
     torch.cuda.empty_cache()
+    # The same training through the mesh path (this slice's main path).
+    t0 = time.perf_counter()
+    spmd_out = phase_spmd(fa, gpt2, cfg, tokens[0], train, smi)
+    torch.cuda.empty_cache()
+    _log("done", f"[spmd] {time.perf_counter() - t0:.1f} s")
+    # The runtime path: the same GPT-2-124M, from seed 0, through the port's
+    # runtime into a GPU-leased worker.
     runtime = phase_runtime(fa, gpt2, cfg, tokens[0], smi)
 
     # The same training through the Train library from a GPU-leased
-    # worker, with a checkpoint and a gang restart; then (this slice's main
-    # path) Tune trials of it queued on the card, and a Tuner over the
-    # trainer; then GPT-2 with experts and ViT-B/16.
+    # worker, with a checkpoint and a gang restart; then Tune trials of it
+    # queued on the card, and a Tuner over the trainer; then GPT-2 with
+    # experts and ViT-B/16.
     t0 = time.perf_counter()
     fit = phase_fit(fa, gpt2, cfg, tokens[0], train, smi)
     t_tune = time.perf_counter()
@@ -2688,6 +2807,10 @@ def main() -> int:
     del tokens
     torch.cuda.empty_cache()
     llama_out = phase_llama(fa, smi)
+    # The multi-rank layouts, over gloo on the host.
+    t0 = time.perf_counter()
+    dryrun_lines = phase_dryrun()
+    _log("done", f"[dryrun] {time.perf_counter() - t0:.1f} s")
     _log("done", f"{time.perf_counter() - t_start:.1f} s in all")
 
     def entry_of(key, name, line, err):
@@ -2720,10 +2843,12 @@ def main() -> int:
         entry["fit_launches"] = fit["launches"][key]
         entry["tune_launches"] = tune_out["launches"][key]
         entry["moe_launches"] = moe["launches"][key]
+        entry["spmd_launches"] = spmd_out["launches"][key]
     print(json.dumps({"forward_ms": fwd, "forward_path_fwd_launches": fwd_launches,
                       "train_step_ms": train["step_ms"], "train_tokens_per_s": train["tokens_per_s"],
                       "head_backward_ms": head, "runtime": runtime, "fit": fit, "tune": tune_out, "moe": moe,
-                      "vit": vit_out, **llama_out, "card": smi}))
+                      "vit": vit_out, "spmd": spmd_out, "dryrun": dryrun_lines, **llama_out,
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

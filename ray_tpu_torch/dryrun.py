@@ -1,0 +1,219 @@
+"""A dry run of the multi-GPU paths (port of ``__graft_entry__.dryrun_multichip``).
+
+``dryrun_multigpu(n)`` starts ``n`` ranks (one process each) in a process
+group and runs, on tiny shapes, one sharded step of each layout the
+reference's dry run covers:
+
+1. GPT-2 with ring attention over a mesh using every axis it can (tp, sp,
+   fsdp, dp), inputs sharded over the data axes and the sequence over sp;
+2. GPT-2 with experts over a mesh with a real ep axis;
+5. (n >= 8) a multi-slice mesh, data parallel over dcn;
+6. (n >= 4) tp-sharded Llama serving: a cached prefill and two row-wise
+   decode steps;
+7. (n % 4 == 0) ViT over fsdp × tp;
+9. the gang's cross-process sum.
+
+The reference's passes 3 and 4 (pipeline parallelism) and 8 (RLlib) have no
+port yet.  Where the reference fails on an involuntary rematerialisation in
+XLA's partitioner, each pass here checks that every parameter, and the
+optimizer's state of each, is sharded as the rule table says.
+
+By default the ranks form an NCCL group, one card a rank, and the dry run
+raises where fewer than ``n`` cards are visible; ``device_type="cpu"`` asks
+for a gloo group on the CPU, as the tests and a one-card machine do.  Each
+pass's ``OK`` line is printed by the caller's process; the losses are CPU
+numbers when the ranks run there.
+
+Run it as ``python -m ray_tpu_torch.dryrun [n] [--cpu]``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List
+
+
+def _mesh_config(n: int):
+    """Factor n into (dp, fsdp, sp, tp), using every axis it can."""
+    from ray_tpu_torch.parallel.mesh import MeshConfig
+
+    rem = n
+    tp = 2 if rem % 2 == 0 else 1
+    rem //= tp
+    sp = 2 if rem % 2 == 0 else 1
+    rem //= sp
+    fsdp = 2 if rem % 2 == 0 else 1
+    rem //= fsdp
+    return MeshConfig(dp=rem, fsdp=fsdp, sp=sp, tp=tp)
+
+
+def _mesh_config_ep(n: int):
+    """A mesh with a real ep axis (plus dp/tp where the ranks allow)."""
+    from ray_tpu_torch.parallel.mesh import MeshConfig
+
+    if n % 2 != 0:
+        return None
+    rem = n // 2
+    tp = 2 if rem % 2 == 0 else 1
+    return MeshConfig(dp=rem // tp, ep=2, tp=tp)
+
+
+def _check_layout(mesh, model, logical, optimizer=None):
+    """Every parameter, and each of its optimizer states that is shaped
+    like it, is sharded as the active rule table says."""
+    from ray_tpu_torch.parallel import spmd
+
+    bad = spmd.layout_errors(mesh, model, logical, optimizer)
+    if bad:
+        raise AssertionError(f"not laid out as the rules say (name, placements, rules'): {bad}")
+
+
+def _train_once(mesh, init_fn, logical, loss_fn, batch, shard_seq=False):
+    """One sharded AdamW step; checks the layout after it; the loss."""
+    from ray_tpu_torch.parallel import spmd
+
+    state = spmd.sharded_init(mesh, init_fn, logical)
+    opt = spmd.adamw(state.params.parameters(), 1e-3)
+    step = spmd.compile_train_step(loss_fn, opt)
+    state, metrics = step(state, spmd.shard_batch(mesh, batch, shard_seq=shard_seq))
+    loss = metrics["loss"].item()
+    if not math.isfinite(loss) or not math.isfinite(metrics["grad_norm"].item()):
+        raise AssertionError(f"non-finite loss or gradient norm: {metrics}")
+    _check_layout(mesh, state.params, logical, opt)
+    return loss
+
+
+def _batch_size(mc):
+    shards = mc.dp * mc.fsdp
+    return ((4 + shards - 1) // shards) * shards
+
+
+def _dryrun_rank(rank: int, n: int, device_type: str) -> List[str]:
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt2, llama, vit
+    from ray_tpu_torch.parallel import mesh as mesh_mod
+    from ray_tpu_torch.parallel import spmd
+
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+    dev = device_type
+    lines = []
+
+    def seeded(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # 1: ring attention over sp, with fsdp, tp and dp.
+    config = gpt2.GPTConfig.tiny(attention_impl="ring")
+    mc = _mesh_config(n)
+    mesh = mesh_mod.make_mesh(mc, device_type=dev)
+    tokens = torch.zeros((_batch_size(mc), config.max_seq_len), dtype=torch.long)
+    loss = _train_once(mesh, lambda: gpt2.init(config, seeded(0), dev), gpt2.param_logical_axes(config),
+                       gpt2.loss_fn, {"inputs": tokens, "targets": tokens}, shard_seq=True)
+    lines.append(f"dryrun_multigpu OK: mesh={mc.describe()} over {n} ranks, 1 train step, "
+                 f"loss={loss:.4f}")
+
+    # 2: expert parallelism.
+    mc_ep = _mesh_config_ep(n)
+    if mc_ep is not None:
+        mesh = mesh_mod.make_mesh(mc_ep, device_type=dev)
+        cfg = gpt2.GPTConfig.tiny(num_experts=max(2, mc_ep.ep))
+        toks = torch.zeros((_batch_size(mc_ep), 64), dtype=torch.long)
+        loss = _train_once(mesh, lambda: gpt2.init(cfg, seeded(1), dev), gpt2.param_logical_axes(cfg),
+                           gpt2.loss_fn, {"inputs": toks, "targets": toks})
+        lines.append(f"dryrun_multigpu MoE OK: mesh={mc_ep.describe()}, experts={cfg.num_experts}, "
+                     f"loss={loss:.4f}")
+
+    # 5: a multi-slice mesh: data parallelism over dcn, tp inside a slice.
+    if n >= 8 and n % 2 == 0:
+        per_slice = n // 2
+        mc_ms = mesh_mod.MeshConfig(dp=-1, tp=2 if per_slice % 2 == 0 else 1)
+        mesh = mesh_mod.make_multislice_mesh(2, mc_ms, device_type=dev)
+        cfg = gpt2.GPTConfig.tiny()
+        loss = _train_once(mesh, lambda: gpt2.init(cfg, seeded(6), dev), gpt2.param_logical_axes(cfg),
+                           gpt2.loss_fn, {"tokens": torch.zeros((8, 33), dtype=torch.long)})
+        lines.append(f"dryrun_multigpu multislice OK: dcn=2 x ici[{mc_ms.resolve(per_slice).describe()}], "
+                     f"loss={loss:.4f}")
+
+    # 6: the serving path, tp-sharded Llama: a cached prefill and two
+    # row-wise decode steps.
+    if n >= 4:
+        mc_dec = mesh_mod.MeshConfig(dp=-1, tp=2).resolve(n)
+        mesh = mesh_mod.make_mesh(mc_dec, device_type=dev)
+        cfg = llama.LlamaConfig.tiny()
+        model = spmd.shard_module(llama.init(cfg, seeded(7), dev), mesh, llama.param_logical_axes(cfg))
+        _check_layout(mesh, model, llama.param_logical_axes(cfg))
+        B, S0, total = 2, 5, 12
+        cache = llama.init_cache(cfg, B, total, dev, mesh=mesh)
+        logits, cache = llama.forward_cached(model, torch.zeros((B, S0), dtype=torch.long, device=dev),
+                                             cache, 0)
+        nxt = logits.argmax(dim=-1)
+        pos = [S0] * B
+        for _ in range(2):
+            logits, cache = llama.decode_step_rowwise(model, nxt, cache, pos)
+            nxt = logits.argmax(dim=-1)
+            pos = [p + 1 for p in pos]
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite decode logits")
+        lines.append(f"dryrun_multigpu decode OK: mesh={mc_dec.describe()}, "
+                     f"tp-sharded prefill + 2 rowwise decode steps")
+    mesh_mod.set_current_mesh(None)
+
+    # 7: ViT over fsdp x tp.
+    if n >= 4 and n % 4 == 0:
+        cfg = vit.ViTConfig.tiny()
+        mc_v = mesh_mod.MeshConfig(dp=-1, fsdp=2, tp=2).resolve(n)
+        mesh = mesh_mod.make_mesh(mc_v, device_type=dev)
+        bsz = _batch_size(mc_v)
+        batch = {"images": torch.zeros((bsz, cfg.image_size, cfg.image_size, 3)),
+                 "labels": torch.zeros((bsz,), dtype=torch.long)}
+        loss = _train_once(mesh, lambda: vit.init(cfg, seeded(8), dev), vit.param_logical_axes(cfg),
+                           vit.loss_fn, batch)
+        lines.append(f"dryrun_multigpu vit OK: mesh={mc_v.describe()}, loss={loss:.4f}")
+    mesh_mod.set_current_mesh(None)
+
+    # 9: the gang itself, a cross-process sum over every rank.
+    x = torch.full((1,), rank + 1.0, device=dev)
+    dist.all_reduce(x)
+    if x.item() != n * (n + 1) / 2:
+        raise AssertionError(f"cross-process sum {x.item()}, expected {n * (n + 1) / 2}")
+    lines.append(f"dryrun_multigpu distributed OK: {n}-process {dist.get_backend()} gang, "
+                 f"cross-process sum correct ({x.item():.0f})")
+    return lines
+
+
+def dryrun_multigpu(n: int, device_type: str = "cuda") -> List[str]:
+    """Run the dry run on ``n`` ranks and print each pass's ``OK`` line;
+    returns the lines.  Every rank must print the same ones (the same
+    losses): a rank that differs, fails or outlasts 900 s raises.  The
+    ranks hold a card each unless the caller asks for ``"cpu"``."""
+    from ray_tpu_torch.parallel.launch import run_ranks
+
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"device_type is 'cuda' or 'cpu', not {device_type!r}")
+    if device_type == "cuda":
+        import torch
+
+        if torch.cuda.device_count() < n:
+            raise RuntimeError(f"dryrun_multigpu({n}, 'cuda') needs {n} cards, "
+                               f"{torch.cuda.device_count()} are visible")
+    per_rank = run_ranks(_dryrun_rank, n, n, device_type,
+                         backend="nccl" if device_type == "cuda" else "gloo", timeout=900.0)
+    for rank, lines in enumerate(per_rank):
+        if lines != per_rank[0]:
+            raise AssertionError(f"rank {rank} saw {lines}, rank 0 {per_rank[0]}")
+    for line in per_rank[0]:
+        print(line, flush=True)
+    return per_rank[0]
+
+
+if __name__ == "__main__":
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("n", type=int, nargs="?", default=8, help="ranks (default 8)")
+    parser.add_argument("--cpu", action="store_true",
+                        help="gloo ranks on the CPU instead of one card a rank")
+    args = parser.parse_args()
+    dryrun_multigpu(args.n, device_type="cpu" if args.cpu else "cuda")

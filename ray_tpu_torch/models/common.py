@@ -1,9 +1,14 @@
-"""Numerics shared across model families (port of ``ray_tpu/models/common.py``)."""
+"""Numerics shared across model families (port of ``ray_tpu/models/common.py``),
+and the sharded weights of the GPT-2 and ViT blocks, which share their
+parameters' names and layouts."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ray_tpu_torch.parallel.mesh import EP_AXIS, TP_AXIS, Mesh
+from ray_tpu_torch.parallel.spmd import local_param
 
 
 def layernorm(x, scale, bias, eps: float = 1e-5):
@@ -101,3 +106,41 @@ def matmul_f32(a, b):
         raise ValueError(f"matmul_f32 takes bf16 or f32 operands, got {a.dtype}, {b.dtype}")
     out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
     return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+# Weights whose tp (and, for the experts, ep) shards a block multiplies by
+# as they lie: the products' outputs are this rank's heads, MLP columns or
+# experts.
+_TP_KEPT = {"proj_kernel": (TP_AXIS,), "fc_kernel": (TP_AXIS,), "fc_bias": (TP_AXIS,),
+            "out_kernel": (TP_AXIS,), "moe_in": (EP_AXIS, TP_AXIS), "moe_out": (EP_AXIS, TP_AXIS)}
+
+
+def head_aligned(t, mesh: Mesh, num_heads: int):
+    """This tp rank's q, k and v heads of a gathered (..., 3H, D) qkv
+    weight: heads r·H/tp .. (r+1)·H/tp - 1 of each of q, k and v.
+
+    The rule table shards the 3H dim over tp as one block, which would give
+    rank 0 all the q heads and some of k; GSPMD reshards around the split,
+    but a local split must see its own heads of each."""
+    tp = mesh.size(TP_AXIS)
+    if tp == 1:
+        return t
+    dim = t.dim() - 2
+    h = num_heads // tp
+    r = mesh.index(TP_AXIS)
+    return t.unflatten(dim, (3, num_heads)).narrow(dim + 1, r * h, h).flatten(dim, dim + 1)
+
+
+def block_weights(block: torch.nn.Module, mesh: Mesh) -> dict:
+    """The tensors a GPT-2 or ViT block computes with on this rank: under a
+    mesh, each parameter gathered over every axis but those in
+    ``_TP_KEPT``, and the qkv weights' own heads; unsharded, the parameters
+    themselves."""
+    H = block.config.num_heads
+    w = {}
+    for name, p in block.named_parameters(recurse=False):
+        if name in ("qkv_kernel", "qkv_bias"):
+            w[name] = head_aligned(local_param(p, mesh, split=(TP_AXIS,)), mesh, H)
+        else:
+            w[name] = local_param(p, mesh, keep=_TP_KEPT.get(name, ()))
+    return w

@@ -15,10 +15,23 @@ the port's CUDA flash kernels; "dense" is the plain path and the one a
 ragged ``S`` takes.  The reference takes flash at any head dim; on the card
 the port's kernels take D = 64 or 128 in f32 or bf16 and raise for any other
 shape, so a flash config such as ``GPTConfig.tiny``'s (D = 16) runs only on
-the CPU, where attention is the kernels' plain version.  With
+the CPU, where attention is the kernels' plain version.  "ring" is ring
+attention over the mesh's sp axis (dense where sp = 1).  With
 ``num_experts`` > 0 every block's MLP is the reference's top-1 (switch)
 Mixture-of-Experts (:func:`_moe_mlp`), whose load-balancing aux loss
-``loss_fn`` adds; ring attention is not ported yet.
+``loss_fn`` adds.
+
+Sharded over a mesh (``parallel.spmd.sharded_init`` with
+:func:`param_logical_axes`), every rank runs the same code on its local
+blocks: the batch split over the data axes, the sequence over sp, attention
+heads and MLP columns over tp (Megatron's layout), experts over ep.  Each
+block takes its weights through ``spmd.local_param``; where the reference
+constrains a layout, the collectives are written out: the tp-sharded
+products' partial sums are summed over tp (``allreduce_sum``) and their
+replicated inputs take the gradients of every shard (``pvary``), the
+experts' outputs are summed over ep, ring attention passes K and V round sp,
+and the loss is the mean over the whole batch.  Unsharded, each of these is
+the identity and the arithmetic is the single-device model's.
 """
 
 from __future__ import annotations
@@ -33,10 +46,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models.common import gelu, layernorm, matmul_f32
+from ray_tpu_torch.models.common import block_weights, gelu, layernorm, matmul_f32
 from ray_tpu_torch.models.xent import head_loss, split_batch
 from ray_tpu_torch.ops.attention import dense_attention
-from ray_tpu_torch.ops.flash_attention import flash_attention_bhsd
+from ray_tpu_torch.ops.flash_attention import sharded_flash_attention_bhsd
+from ray_tpu_torch.ops.ring_attention import ring_attention
+from ray_tpu_torch.parallel.collectives import allreduce_mean, allreduce_sum, pvary
+from ray_tpu_torch.parallel.mesh import EP_AXIS, SP_AXIS, TP_AXIS, Mesh
+from ray_tpu_torch.parallel.spmd import local_param, mesh_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +66,7 @@ class GPTConfig:
     mlp_ratio: int = 4
     dtype: torch.dtype = torch.bfloat16  # activation/matmul dtype
     param_dtype: torch.dtype = torch.float32
-    attention_impl: str = "dense"  # "dense" | "flash"
+    attention_impl: str = "dense"  # "dense" | "flash" | "ring" (sp-sharded)
     # recompute each block's activations in the backward pass instead of
     # keeping them (torch.utils.checkpoint); no effect without gradients
     remat: bool = True
@@ -89,10 +106,42 @@ class GPTConfig:
 
 
 def _check_config(c: GPTConfig):
-    if c.attention_impl == "ring":
-        raise NotImplementedError("ring attention is not ported yet")
-    if c.attention_impl not in ("dense", "flash"):
+    if c.attention_impl not in ("dense", "flash", "ring"):
         raise ValueError(f"unknown attention_impl {c.attention_impl!r}")
+
+
+def param_logical_axes(config: GPTConfig) -> dict:
+    """Logical axis names of every parameter, keyed by its name in
+    ``named_parameters`` (the reference's table, per block and without its
+    leading "layers" axis)."""
+    blk = {
+        "ln1_scale": ("embed",),
+        "ln1_bias": ("embed",),
+        "qkv_kernel": ("embed", "heads", "kv"),
+        "qkv_bias": ("heads", "kv"),
+        "proj_kernel": ("heads", "kv", "embed"),
+        "proj_bias": ("embed",),
+        "ln2_scale": ("embed",),
+        "ln2_bias": ("embed",),
+    }
+    if config.num_experts > 0:
+        blk.update({
+            "router": ("embed", "expert"),
+            "moe_in": ("expert", "embed", "mlp"),
+            "moe_out": ("expert", "mlp", "embed"),
+        })
+    else:
+        blk.update({
+            "fc_kernel": ("embed", "mlp"),
+            "fc_bias": ("mlp",),
+            "out_kernel": ("mlp", "embed"),
+            "out_bias": ("embed",),
+        })
+    out = {"wte": ("vocab", "embed"), "wpe": (None, "embed")}
+    for i in range(config.num_layers):
+        out.update({f"blocks.{i}.{k}": v for k, v in blk.items()})
+    out.update({"lnf_scale": ("embed",), "lnf_bias": ("embed",)})
+    return out
 
 
 def _param(shape, c: GPTConfig, device) -> nn.Parameter:
@@ -123,7 +172,8 @@ def moe_capacity(config: GPTConfig, seq_len: int) -> int:
     return max(1, math.ceil(config.moe_capacity_factor * seq_len / config.num_experts))
 
 
-def _moe_mlp(h, router, moe_in, moe_out, config: GPTConfig, mask=None):
+def _moe_mlp(h, router, moe_in, moe_out, config: GPTConfig, mask=None,
+             mesh: Mesh = Mesh.unsharded()):
     """Top-1 (switch) MoE MLP, the reference's ``_moe_mlp``.  h (B, S, E)
     post-norm → (delta (B, S, E) in dtype, aux 0-d f32).
 
@@ -133,9 +183,15 @@ def _moe_mlp(h, router, moe_in, moe_out, config: GPTConfig, mask=None):
     f32 and is cast to dtype; the experts' GELU MLP runs in dtype; the
     combine is weighted by the top-1 gate.  Tokens past capacity add
     nothing (the residual carries them).  aux is the Switch
-    load-balancing loss X·Σ f_i·P_i (1.0 at perfect balance).  ``mask``
-    (B, S) takes padding tokens out of routing: they use no capacity and
-    the aux statistics count only real tokens."""
+    load-balancing loss X·Σ f_i·P_i (1.0 at perfect balance), f and P means
+    over the whole batch.  ``mask`` (B, S) takes padding tokens out of
+    routing: they use no capacity and the aux statistics count only real
+    tokens.
+
+    Under a mesh every rank routes its tokens to all X experts; ``moe_in``
+    and ``moe_out`` are this rank's experts (ep) and MLP columns (tp), whose
+    outputs are summed over ep and tp.  The reference adds no explicit
+    all_to_all, and neither does this: the tokens are replicated over ep."""
     c = config
     dt = c.dtype
     X = c.num_experts
@@ -144,19 +200,24 @@ def _moe_mlp(h, router, moe_in, moe_out, config: GPTConfig, mask=None):
     disp = torch.where((pos >= 0) & (pos < C), onehot, 0.0)
     pos_idx = pos.clamp(0, C - 1).long()
     disp_bsxc = disp[..., None] * F.one_hot(pos_idx, C).float()
-    expert_in = torch.einsum("bsxc,bse->bxce", disp_bsxc, h.float()).to(dt)
+    n_local = moe_in.shape[0]
+    if n_local != X:  # this ep rank's experts
+        disp_bsxc = disp_bsxc.narrow(2, mesh.index(EP_AXIS) * n_local, n_local)
+    experts = (EP_AXIS, TP_AXIS)
+    expert_in = torch.einsum("bsxc,bse->bxce", disp_bsxc, pvary(h, experts, mesh=mesh).float()).to(dt)
     hmid = gelu(torch.einsum("bxce,xem->bxcm", expert_in, moe_in.to(dt)))
     expert_out = torch.einsum("bxcm,xme->bxce", hmid, moe_out.to(dt))
-    combine = (disp_bsxc * gate[..., None, None]).to(dt)
-    out = torch.einsum("bsxc,bxce->bse", combine, expert_out)
+    combine = (disp_bsxc * pvary(gate, experts, mesh=mesh)[..., None, None]).to(dt)
+    out = allreduce_sum(torch.einsum("bsxc,bxce->bse", combine, expert_out), experts, mesh=mesh)
+    data = (*mesh.data_axes, SP_AXIS)
     if mask is None:
-        f = onehot.mean(dim=(0, 1))
-        P = probs.mean(dim=(0, 1))
+        f = allreduce_mean(onehot.mean(dim=(0, 1)), data, mesh=mesh)
+        P = allreduce_mean(probs.mean(dim=(0, 1)), data, mesh=mesh)
     else:
         m = mask[..., None].float()
-        denom = torch.clamp(m.sum(), min=1.0)
-        f = onehot.sum(dim=(0, 1)) / denom
-        P = (probs * m).sum(dim=(0, 1)) / denom
+        denom = torch.clamp(allreduce_sum(m.sum(), data, mesh=mesh), min=1.0)
+        f = allreduce_sum(onehot.sum(dim=(0, 1)), data, mesh=mesh) / denom
+        P = allreduce_sum((probs * m).sum(dim=(0, 1)), data, mesh=mesh) / denom
     aux = X * torch.sum(f * P)
     return out, aux
 
@@ -191,38 +252,52 @@ class Block(nn.Module):
     def forward(self, x, mask=None):
         """x: (B, S, E) in config.dtype → (x (B, S, E), the MoE aux loss: a
         0-d f32 tensor, None for a dense MLP).  ``mask`` (B, S) reaches only
-        the MoE's routing."""
+        the MoE's routing.  Under a mesh, x is this rank's block."""
         c = self.config
-        dt, H = c.dtype, c.num_heads
-        h = layernorm(x, self.ln1_scale, self.ln1_bias)
+        dt = c.dtype
+        mesh = mesh_of(self)
+        w = block_weights(self, mesh)
+        H = w["proj_kernel"].shape[0]  # this rank's heads
+        sp = mesh.size(SP_AXIS) > 1
+        if sp and c.attention_impl != "ring":
+            raise ValueError(f"attention_impl={c.attention_impl!r} sees only this rank's "
+                             "sequence block; shard the sequence over sp with 'ring'")
+        h = pvary(layernorm(x, w["ln1_scale"], w["ln1_bias"]), TP_AXIS, mesh=mesh)
         if c.attention_impl == "flash" and x.shape[1] % 128 == 0:
             # The kernel reads q, k, v as strided (B, H, S, D) views of the
             # projection's output: q is heads 0..H-1, k H..2H-1, v 2H..3H-1.
-            qkv = torch.einsum("bse,ehd->bhsd", h, self.qkv_kernel.to(dt)) + (
-                self.qkv_bias.to(dt)[None, :, None, :]
+            qkv = torch.einsum("bse,ehd->bhsd", h, w["qkv_kernel"].to(dt)) + (
+                w["qkv_bias"].to(dt)[None, :, None, :]
             )
             q, k, v = qkv.split(H, dim=1)
-            attn = flash_attention_bhsd(q, k, v)
-            x = x + torch.einsum(
-                "bhsd,hde->bse", attn, self.proj_kernel.to(dt)
-            ) + self.proj_bias.to(dt)
+            attn = sharded_flash_attention_bhsd(q, k, v, mesh=mesh)
+            x = x + allreduce_sum(torch.einsum(
+                "bhsd,hde->bse", attn, w["proj_kernel"].to(dt)), TP_AXIS, mesh=mesh
+            ) + w["proj_bias"].to(dt)
         else:
             qkv = torch.einsum(
-                "bse,ehd->bshd", h, self.qkv_kernel.to(dt)
-            ) + self.qkv_bias.to(dt)
+                "bse,ehd->bshd", h, w["qkv_kernel"].to(dt)
+            ) + w["qkv_bias"].to(dt)
             q, k, v = qkv.split(H, dim=2)
-            attn = dense_attention(q, k, v)
-            x = x + torch.einsum(
-                "bshd,hde->bse", attn, self.proj_kernel.to(dt)
-            ) + self.proj_bias.to(dt)
-        h = layernorm(x, self.ln2_scale, self.ln2_bias)
+            if c.attention_impl == "ring":
+                attn = ring_attention(q, k, v, mesh=mesh)
+            else:
+                attn = dense_attention(q, k, v)
+            x = x + allreduce_sum(torch.einsum(
+                "bshd,hde->bse", attn, w["proj_kernel"].to(dt)), TP_AXIS, mesh=mesh
+            ) + w["proj_bias"].to(dt)
+        h = layernorm(x, w["ln2_scale"], w["ln2_bias"])
         if c.num_experts > 0:
-            delta, aux = _moe_mlp(h, self.router, self.moe_in, self.moe_out, c, mask)
+            if sp:
+                raise ValueError("the experts' per-row capacity counts along the whole "
+                                 "sequence: GPT-2 with experts runs with sp = 1")
+            delta, aux = _moe_mlp(h, w["router"], w["moe_in"], w["moe_out"], c, mask, mesh=mesh)
             return x + delta, aux
-        h = gelu(torch.einsum("bse,em->bsm", h, self.fc_kernel.to(dt)) + self.fc_bias.to(dt))
-        return x + torch.einsum(
-            "bsm,me->bse", h, self.out_kernel.to(dt)
-        ) + self.out_bias.to(dt), None
+        h = pvary(h, TP_AXIS, mesh=mesh)
+        h = gelu(torch.einsum("bse,em->bsm", h, w["fc_kernel"].to(dt)) + w["fc_bias"].to(dt))
+        return x + allreduce_sum(torch.einsum(
+            "bsm,me->bse", h, w["out_kernel"].to(dt)), TP_AXIS, mesh=mesh
+        ) + w["out_bias"].to(dt), None
 
 
 class GPT2(nn.Module):
@@ -252,8 +327,13 @@ class GPT2(nn.Module):
         # token into its bf16 table copy, in bf16, where this sums them in
         # f32 and does not round.  Rows of a token seen n times may differ by
         # about n bf16 roundings (2^-9 relative each) of the partial sums.
-        x = F.embedding(tokens, self.wte).to(dt)
-        return x + self.wpe.to(dt)[: tokens.shape[1]]
+        # Under a mesh, tokens are this rank's block: its positions start at
+        # its sequence block's offset.
+        mesh = mesh_of(self)
+        S = tokens.shape[1]
+        x = F.embedding(tokens, local_param(self.wte, mesh)).to(dt)
+        start = mesh.index(SP_AXIS) * S
+        return x + local_param(self.wpe, mesh).to(dt)[start: start + S]
 
     def features(self, tokens):
         """tokens (B, S) int → final-layernorm features (B, S, E) in dtype."""
@@ -273,17 +353,19 @@ class GPT2(nn.Module):
                 x, a = block(x, mask)
             if a is not None:
                 aux = a if aux is None else aux + a
-        return layernorm(x, self.lnf_scale, self.lnf_bias), aux
+        mesh = mesh_of(self)
+        return layernorm(x, local_param(self.lnf_scale, mesh), local_param(self.lnf_bias, mesh)), aux
 
     @property
     def head_weight(self):
-        """The (V, E) table the head multiplies by: ``wte``, tied."""
-        return self.wte
+        """The (V, E) table the head multiplies by: ``wte``, tied (under a
+        mesh, gathered whole on every rank)."""
+        return local_param(self.wte, mesh_of(self))
 
     def head(self, x):
         """Tied lm_head: features (B, S, E) → logits (B, S, V) in f32, from
         dtype operands with f32 accumulation (see ``matmul_f32``)."""
-        return matmul_f32(x, self.wte.to(self.config.dtype).t())
+        return matmul_f32(x, self.head_weight.to(self.config.dtype).t())
 
     def forward(self, tokens):
         """tokens (B, S) int → logits (B, S, vocab) in f32."""

@@ -27,8 +27,16 @@ The reference's ``_cached_attention`` and the attention inside its
 ``_block_decode_rowwise`` are one function here, ``_cached_attention``, and
 its ``_block_cached`` and ``_block_decode_rowwise`` one ``_block_cached``,
 which writes the cache at the positions its caller computed once for all
-layers.  Ring attention and ``param_logical_axes`` (the sharding rules)
-are not ported yet.
+layers.  ``attention_impl="ring"`` is ring attention over a mesh's sp axis
+(dense where sp = 1) on the full forward.
+
+Sharded over a mesh (:func:`param_logical_axes`), every path runs on each
+rank's blocks as GPT-2's does: ``wq`` and ``wo`` split their heads over tp,
+and the MLP its columns; ``wk`` and ``wv`` are replicated (the rule table
+maps "kv" to nothing), and each tp rank computes the KV heads its query
+heads read, so that its cache holds num_kv_heads / tp heads
+(``init_cache(..., mesh=)``).  The attention projection's and the MLP's
+partial sums are summed over tp.
 """
 
 from __future__ import annotations
@@ -45,6 +53,10 @@ from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.models.common import bmm_f32, matmul_f32
 from ray_tpu_torch.models.xent import next_token_loss
 from ray_tpu_torch.ops.attention import NEG_INF, dense_attention
+from ray_tpu_torch.ops.ring_attention import ring_attention
+from ray_tpu_torch.parallel.collectives import allreduce_sum, pvary
+from ray_tpu_torch.parallel.mesh import SP_AXIS, TP_AXIS, Mesh
+from ray_tpu_torch.parallel.spmd import local_param, mesh_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +72,7 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    attention_impl: str = "dense"  # "dense" | "ring" (not ported yet)
+    attention_impl: str = "dense"  # "dense" | "ring" (sp-sharded)
     # sliding-window attention (Mistral-style): > 0 limits every query to
     # the last `sliding_window` keys, in training and in the cached paths.
     # 0 = full causal.
@@ -109,12 +121,72 @@ class LlamaConfig:
 
 
 def _check_config(c: LlamaConfig):
-    if c.attention_impl == "ring":
-        raise NotImplementedError("ring attention is not ported yet")
-    if c.attention_impl != "dense":
+    if c.attention_impl not in ("dense", "ring"):
         raise ValueError(f"unknown attention_impl {c.attention_impl!r}")
+    if c.attention_impl == "ring" and c.sliding_window:
+        raise NotImplementedError(
+            "sliding_window with ring attention: window the KV ring "
+            "instead (sp shards already bound the lookback)"
+        )
     if c.num_heads % c.num_kv_heads:
         raise ValueError(f"num_heads {c.num_heads} is not a multiple of num_kv_heads {c.num_kv_heads}")
+
+
+def param_logical_axes(config: LlamaConfig) -> dict:
+    """Logical axis names of every parameter, keyed by its name in
+    ``named_parameters`` (the reference's table, per block and without its
+    leading "layers" axis)."""
+    blk = {
+        "attn_norm": ("embed",),
+        "wq": ("embed", "heads", None),
+        "wk": ("embed", "kv", None),
+        "wv": ("embed", "kv", None),
+        "wo": ("heads", None, "embed"),
+        "mlp_norm": ("embed",),
+        "w_gate": ("embed", "mlp"),
+        "w_up": ("embed", "mlp"),
+        "w_down": ("mlp", "embed"),
+    }
+    out = {"tok_embed": ("vocab", "embed")}
+    for i in range(config.num_layers):
+        out.update({f"blocks.{i}.{k}": v for k, v in blk.items()})
+    out["final_norm"] = ("embed",)
+    if not config.tie_embeddings:
+        out["lm_head"] = ("vocab", "embed")
+    return out
+
+
+_TP_KEPT = ("wq", "wo", "w_gate", "w_up", "w_down")
+
+
+class _Weights:
+    """A block's weights as this rank computes with them (attributes named
+    as the block's parameters)."""
+
+    def __init__(self, **w):
+        self.__dict__.update(w)
+
+
+def _weights(block: nn.Module, mesh: Mesh):
+    """The tensors a block computes with on this rank: unsharded, the block
+    itself; under a mesh, ``wq``/``wo`` and the MLP's tp shards as they lie,
+    ``wk``/``wv`` gathered and cut to the KV heads that this rank's query
+    heads read, the norms gathered."""
+    tp = mesh.size(TP_AXIS)
+    if mesh.torch_mesh is None:
+        return block
+    c = block.config
+    if c.num_kv_heads % tp:
+        raise ValueError(f"num_kv_heads {c.num_kv_heads} is not divisible by tp {tp}: "
+                         "each tp rank computes its query heads' own KV heads")
+    kv = c.num_kv_heads // tp
+    w = {}
+    for name, p in block.named_parameters(recurse=False):
+        if name in ("wk", "wv"):
+            w[name] = local_param(p, mesh, split=(TP_AXIS,)).narrow(1, mesh.index(TP_AXIS) * kv, kv)
+        else:
+            w[name] = local_param(p, mesh, keep=(TP_AXIS,) if name in _TP_KEPT else ())
+    return _Weights(**w)
 
 
 def _param(shape, c: LlamaConfig, device) -> nn.Parameter:
@@ -174,40 +246,49 @@ class Block(nn.Module):
 
     def forward(self, x, rope):
         """Full causal attention.  x: (B, S, E) in dtype; rope: the (cos,
-        sin) tables of positions 0..S-1."""
-        return _block(x, self, rope, self.config)
+        sin) tables of x's positions."""
+        mesh = mesh_of(self)
+        return _block(x, _weights(self, mesh), rope, self.config, mesh)
 
 
-def _qkv(x, p: Block, rope, c: LlamaConfig):
-    """q (B, S, H, D), k and v (B, S, KV, D) of x, RoPE on q and k."""
+def _qkv(x, p: Block, rope, c: LlamaConfig, mesh: Mesh):
+    """q (B, S, H, D), k and v (B, S, KV, D) of x, RoPE on q and k (this
+    rank's heads under a mesh)."""
     dt = c.dtype
-    h = _rmsnorm(x, p.attn_norm, c.rms_eps)
+    h = pvary(_rmsnorm(x, p.attn_norm, c.rms_eps), TP_AXIS, mesh=mesh)
     q = _rotate(torch.einsum("bse,ehd->bshd", h, p.wq.to(dt)), *rope)
     k = _rotate(torch.einsum("bse,ekd->bskd", h, p.wk.to(dt)), *rope)
     v = torch.einsum("bse,ekd->bskd", h, p.wv.to(dt))
     return q, k, v
 
 
-def _out_and_mlp(x, attn, p: Block, c: LlamaConfig):
+def _out_and_mlp(x, attn, p: Block, c: LlamaConfig, mesh: Mesh):
     """The attention projection's residual add, then the SwiGLU MLP's."""
     dt = c.dtype
-    x = x + torch.einsum("bshd,hde->bse", attn, p.wo.to(dt))
-    h = _rmsnorm(x, p.mlp_norm, c.rms_eps)
+    x = x + allreduce_sum(torch.einsum("bshd,hde->bse", attn, p.wo.to(dt)), TP_AXIS, mesh=mesh)
+    h = pvary(_rmsnorm(x, p.mlp_norm, c.rms_eps), TP_AXIS, mesh=mesh)
     gate = torch.einsum("bse,em->bsm", h, p.w_gate.to(dt))
     up = torch.einsum("bse,em->bsm", h, p.w_up.to(dt))
     # jax.nn.silu is x * sigmoid(x), rounded to dtype after each op
-    return x + torch.einsum("bsm,me->bse", gate * torch.sigmoid(gate) * up, p.w_down.to(dt))
+    return x + allreduce_sum(torch.einsum(
+        "bsm,me->bse", gate * torch.sigmoid(gate) * up, p.w_down.to(dt)), TP_AXIS, mesh=mesh)
 
 
-def _block(x, p: Block, rope, c: LlamaConfig):
-    q, k, v = _qkv(x, p, rope, c)
+def _block(x, p: Block, rope, c: LlamaConfig, mesh: Mesh):
+    q, k, v = _qkv(x, p, rope, c, mesh)
     if c.q_per_kv > 1:
         # jnp.repeat along heads: each KV head serves q_per_kv adjacent
         # query heads (head h reads KV head h // q_per_kv)
         k = k.repeat_interleave(c.q_per_kv, dim=2)
         v = v.repeat_interleave(c.q_per_kv, dim=2)
-    attn = dense_attention(q, k, v, window=c.sliding_window)
-    return _out_and_mlp(x, attn, p, c)
+    if c.attention_impl == "ring":
+        attn = ring_attention(q, k, v, mesh=mesh)
+    elif mesh.size(SP_AXIS) > 1:
+        raise ValueError("dense attention sees only this rank's sequence block; "
+                         "shard the sequence over sp with attention_impl='ring'")
+    else:
+        attn = dense_attention(q, k, v, window=c.sliding_window)
+    return _out_and_mlp(x, attn, p, c, mesh)
 
 
 class Llama(nn.Module):
@@ -228,25 +309,34 @@ class Llama(nn.Module):
 
     @property
     def head_weight(self):
-        """The (V, E) table the head multiplies by."""
-        return self.tok_embed if self.config.tie_embeddings else self.lm_head
+        """The (V, E) table the head multiplies by (under a mesh, gathered
+        whole on every rank)."""
+        return local_param(self.tok_embed if self.config.tie_embeddings else self.lm_head,
+                           mesh_of(self))
 
     def embed(self, tokens):
         """tokens (B, S) int → (B, S, E) in dtype.  The lookup of the stored
         table, then the cast: the reference's cast-then-lookup bit for bit."""
-        return nn.functional.embedding(tokens, self.tok_embed).to(self.config.dtype)
+        table = local_param(self.tok_embed, mesh_of(self))
+        return nn.functional.embedding(tokens, table).to(self.config.dtype)
+
+    def final_norm_weight(self):
+        return local_param(self.final_norm, mesh_of(self))
 
     def features(self, tokens):
-        """tokens (B, S) int → final-RMSNorm features (B, S, E) in dtype."""
+        """tokens (B, S) int → final-RMSNorm features (B, S, E) in dtype.
+        Under a mesh, tokens are this rank's block, whose positions start at
+        its sequence block's offset."""
         c = self.config
         B, S = tokens.shape
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        start = mesh_of(self).index(SP_AXIS) * S
+        positions = torch.arange(start, start + S, device=tokens.device).expand(B, S)
         rope = _rope_tables(positions, c.head_dim, c.rope_theta)
         x = self.embed(tokens)
         remat = c.remat and torch.is_grad_enabled()
         for block in self.blocks:
             x = checkpoint(block, x, rope, use_reentrant=False) if remat else block(x, rope)
-        return _rmsnorm(x, self.final_norm, c.rms_eps)
+        return _rmsnorm(x, self.final_norm_weight(), c.rms_eps)
 
     def head(self, x):
         """Features (..., E) → logits (..., V) in f32, from dtype operands
@@ -352,13 +442,16 @@ def generate(model: Llama, prompt, *, max_new_tokens: int = 32,
 # ---------------------------------------------------------------------------
 
 
-def init_cache(config: LlamaConfig, batch_size: int, max_len: int, device="cuda"):
+def init_cache(config: LlamaConfig, batch_size: int, max_len: int, device="cuda",
+               mesh: Optional[Mesh] = None):
     """Fixed-bucket KV cache: {"k", "v"}, each (L, B, max_len, KV, D) zeros
     in dtype.  With ``sliding_window`` it may be a rolling buffer (slot =
-    position mod max_len) as short as ``rolling_cache_len``."""
+    position mod max_len) as short as ``rolling_cache_len``.  For a model
+    sharded over ``mesh`` it is this rank's: KV = num_kv_heads / tp."""
     c = config
     device = resolve_device(device)
-    shape = (c.num_layers, batch_size, max_len, c.num_kv_heads, c.head_dim)
+    kv = c.num_kv_heads // (mesh.size(TP_AXIS) if mesh is not None else 1)
+    shape = (c.num_layers, batch_size, max_len, kv, c.head_dim)
     return {
         "k": torch.zeros(shape, dtype=c.dtype, device=device),
         "v": torch.zeros(shape, dtype=c.dtype, device=device),
@@ -403,7 +496,8 @@ def _cached_attention(q, k_cache, v_cache, mask, c: LlamaConfig):
     The probabilities times each row's whole (T, KV·D) values give every
     head's output on the diagonal blocks."""
     B, Sq, H, D = q.shape
-    T, KV, G = k_cache.shape[1], c.num_kv_heads, c.q_per_kv
+    T, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
     if Sq == 1:
         qb = q.new_zeros((B, KV, G, KV, D))
         qb.diagonal(dim1=1, dim2=3).copy_(q.view(B, KV, G, D).permute(0, 2, 3, 1))
@@ -422,19 +516,21 @@ def _cached_attention(q, k_cache, v_cache, mask, c: LlamaConfig):
     return out.view(B, KV, G, Sq, D).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
 
 
-def _block_cached(x, p: Block, cache_k, cache_v, where, rope, mask, c: LlamaConfig):
+def _block_cached(x, blk: Block, cache_k, cache_v, where, rope, mask, c: LlamaConfig):
     """One block over x (B, Sq, E): writes the new k and v into this
     layer's cache (B, T, KV, D) in place at index ``where`` (shaped like
     k), then attends over the cache under ``mask``."""
-    q, k, v = _qkv(x, p, rope, c)
+    mesh = mesh_of(blk)
+    p = _weights(blk, mesh)
+    q, k, v = _qkv(x, p, rope, c, mesh)
     cache_k[where] = k
     cache_v[where] = v
-    return _out_and_mlp(x, _cached_attention(q, cache_k, cache_v, mask, c), p, c)
+    return _out_and_mlp(x, _cached_attention(q, cache_k, cache_v, mask, c), p, c, mesh)
 
 
 def _last_logits(model: Llama, x):
     """Final RMSNorm and head of the last position only: (B, V) f32."""
-    return model.head(_rmsnorm(x[:, -1], model.final_norm, model.config.rms_eps))
+    return model.head(_rmsnorm(x[:, -1], model.final_norm_weight(), model.config.rms_eps))
 
 
 @torch.inference_mode()

@@ -15,6 +15,11 @@ Parameters keep the reference's per-layer shapes and are stored in
 ``lax.scan`` over stacked layers is a Python loop over ``blocks``; with
 ``remat`` each block runs under ``torch.utils.checkpoint`` when gradients
 are taken, as the reference wraps it in ``jax.checkpoint``.
+
+Sharded over a mesh (:func:`param_logical_axes`, the same vocabulary as
+GPT-2's), each rank runs on its block of the batch, with attention heads and
+MLP columns split over tp as in GPT-2's blocks; the patch tokens are never
+split (sp = 1).  The loss is the mean over the whole batch.
 """
 
 from __future__ import annotations
@@ -28,7 +33,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models.common import gelu, layernorm
+from ray_tpu_torch.models.common import block_weights, gelu, layernorm
+from ray_tpu_torch.parallel.collectives import allreduce_mean, allreduce_sum, pvary
+from ray_tpu_torch.parallel.mesh import SP_AXIS, TP_AXIS
+from ray_tpu_torch.parallel.spmd import local_param, mesh_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +84,36 @@ class ViTConfig:
         return ViTConfig(**kw)
 
 
+def param_logical_axes(config: ViTConfig) -> dict:
+    """Logical axis names of every parameter, keyed by its name in
+    ``named_parameters`` (the reference's table, per block and without its
+    leading "layers" axis)."""
+    blk = {
+        "ln1_scale": ("embed",),
+        "ln1_bias": ("embed",),
+        "qkv_kernel": ("embed", "heads", "kv"),
+        "qkv_bias": ("heads", "kv"),
+        "proj_kernel": ("heads", "kv", "embed"),
+        "proj_bias": ("embed",),
+        "ln2_scale": ("embed",),
+        "ln2_bias": ("embed",),
+        "fc_kernel": ("embed", "mlp"),
+        "fc_bias": ("mlp",),
+        "out_kernel": ("mlp", "embed"),
+        "out_bias": ("embed",),
+    }
+    out = {
+        "patch_kernel": (None, "embed"),  # (patch_dim, E)
+        "patch_bias": ("embed",),
+        "pos_embed": (None, "embed"),  # (num_patches, E)
+    }
+    for i in range(config.num_layers):
+        out.update({f"blocks.{i}.{k}": v for k, v in blk.items()})
+    out.update({"lnf_scale": ("embed",), "lnf_bias": ("embed",),
+                "head_kernel": ("embed", "vocab"), "head_bias": ("vocab",)})
+    return out
+
+
 def _param(shape, c: ViTConfig, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=c.param_dtype, device=device))
 
@@ -115,19 +153,24 @@ class Block(nn.Module):
     def forward(self, x):
         """x: (B, S, E) in config.dtype → (B, S, E)."""
         c = self.config
-        dt, H, D = c.dtype, c.num_heads, c.head_dim
-        h = layernorm(x, self.ln1_scale, self.ln1_bias)
-        qkv = torch.einsum("bse,ehd->bshd", h, self.qkv_kernel.to(dt)) + self.qkv_bias.to(dt)
+        dt, D = c.dtype, c.head_dim
+        mesh = mesh_of(self)
+        w = block_weights(self, mesh)
+        H = w["proj_kernel"].shape[0]  # this rank's heads
+        h = pvary(layernorm(x, w["ln1_scale"], w["ln1_bias"]), TP_AXIS, mesh=mesh)
+        qkv = torch.einsum("bse,ehd->bshd", h, w["qkv_kernel"].to(dt)) + w["qkv_bias"].to(dt)
         q, k, v = qkv.split(H, dim=2)  # (B, S, H, D) each
         # bidirectional attention: every patch attends to every patch
         q = q.transpose(1, 2) * (1.0 / math.sqrt(D))
         scores = torch.einsum("bhqd,bkhd->bhqk", q.float(), k.float())
         probs = torch.softmax(scores, dim=-1).to(dt)
         o = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        x = x + (torch.einsum("bshd,hde->bse", o, self.proj_kernel.to(dt)) + self.proj_bias.to(dt))
-        h = layernorm(x, self.ln2_scale, self.ln2_bias)
-        h = gelu(torch.einsum("bse,em->bsm", h, self.fc_kernel.to(dt)) + self.fc_bias.to(dt))
-        return x + (torch.einsum("bsm,me->bse", h, self.out_kernel.to(dt)) + self.out_bias.to(dt))
+        x = x + (allreduce_sum(torch.einsum("bshd,hde->bse", o, w["proj_kernel"].to(dt)), TP_AXIS,
+                               mesh=mesh) + w["proj_bias"].to(dt))
+        h = pvary(layernorm(x, w["ln2_scale"], w["ln2_bias"]), TP_AXIS, mesh=mesh)
+        h = gelu(torch.einsum("bse,em->bsm", h, w["fc_kernel"].to(dt)) + w["fc_bias"].to(dt))
+        return x + (allreduce_sum(torch.einsum("bsm,me->bse", h, w["out_kernel"].to(dt)), TP_AXIS,
+                                  mesh=mesh) + w["out_bias"].to(dt))
 
 
 class ViT(nn.Module):
@@ -153,15 +196,19 @@ class ViT(nn.Module):
         """images (B, H, W, C) float → logits (B, num_classes) in f32."""
         c = self.config
         dt = c.dtype
+        mesh = mesh_of(self)
+        if mesh.size(SP_AXIS) > 1:
+            raise ValueError("ViT attends over all patches of an image: it runs with sp = 1")
+        w = {name: local_param(p, mesh) for name, p in self.named_parameters(recurse=False)}
         x = patchify(images.to(dt), c)
-        x = (torch.einsum("bsp,pe->bse", x, self.patch_kernel.to(dt))
-             + self.patch_bias.to(dt) + self.pos_embed.to(dt)[None])
+        x = (torch.einsum("bsp,pe->bse", x, w["patch_kernel"].to(dt))
+             + w["patch_bias"].to(dt) + w["pos_embed"].to(dt)[None])
         remat = c.remat and torch.is_grad_enabled()
         for block in self.blocks:
             x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
-        x = layernorm(x, self.lnf_scale, self.lnf_bias)
+        x = layernorm(x, w["lnf_scale"], w["lnf_bias"])
         pooled = x.mean(dim=1)  # mean-pool patch tokens
-        return pooled.float() @ self.head_kernel.float() + self.head_bias.float()
+        return pooled.float() @ w["head_kernel"].float() + w["head_bias"].float()
 
 
 def init(config: ViTConfig, generator: Optional[torch.Generator] = None,
@@ -205,13 +252,18 @@ def loss_fn(model: ViT, batch):
     "labels": (B,)}."""
     logits = model(batch["images"])
     logp = torch.log_softmax(logits, dim=-1)
-    return -torch.gather(logp, -1, batch["labels"].long()[:, None])[:, 0].mean()
+    mesh = mesh_of(model)
+    # every rank holds as many images: the mean of the ranks' means
+    return allreduce_mean(-torch.gather(logp, -1, batch["labels"].long()[:, None])[:, 0].mean(),
+                          mesh.data_axes, mesh=mesh)
 
 
 def accuracy(model: ViT, batch):
     """Share of images whose top logit is their label, a 0-d f32 tensor."""
     logits = model(batch["images"])
-    return (torch.argmax(logits, dim=-1) == batch["labels"].long()).float().mean()
+    mesh = mesh_of(model)
+    return allreduce_mean((torch.argmax(logits, dim=-1) == batch["labels"].long()).float().mean(),
+                          mesh.data_axes, mesh=mesh)
 
 
 def num_params(config: ViTConfig) -> int:

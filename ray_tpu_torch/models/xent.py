@@ -5,6 +5,10 @@ one chunk's (B, C, V) f32 logits is alive at once.  As the reference does
 with ``jax.checkpoint``, each chunk runs under ``torch.utils.checkpoint``
 when gradients are taken: its logits are recomputed in the backward pass
 instead of living through the whole step.
+
+For a model sharded over a mesh the features are this rank's block of the
+batch (and of the sequence, over sp); the loss is the mean over the whole
+batch, its sums and counts summed over those axes, on every rank.
 """
 
 from __future__ import annotations
@@ -13,6 +17,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.models.common import matmul_f32
+from ray_tpu_torch.parallel.collectives import allreduce_mean, allreduce_sum
+from ray_tpu_torch.parallel.mesh import SP_AXIS
+from ray_tpu_torch.parallel.spmd import mesh_of
 
 
 def _chunk_ll(xc, w, tc):
@@ -22,11 +29,12 @@ def _chunk_ll(xc, w, tc):
     return torch.gather(logits, -1, tc[..., None].long())[..., 0] - lse
 
 
-def chunked_xent(x, head_weight, targets, mask, chunk: int, dtype):
+def chunked_xent(x, head_weight, targets, mask, chunk: int, dtype, total=lambda t: t):
     """Mean negative log-likelihood with a chunked head.
 
     x: (B, S, E) features; head_weight: (V, E); targets: (B, S) int;
-    mask: optional (B, S); chunk must divide S.
+    mask: optional (B, S); chunk must divide S.  ``total`` sums a local
+    sum over the ranks that hold the rest of the batch.
     """
     S = targets.shape[1]
     w = head_weight.to(dtype).t()
@@ -45,7 +53,7 @@ def chunked_xent(x, head_weight, targets, mask, chunk: int, dtype):
             mc = mask[:, c0:c0 + chunk].float()
             ll_sum = ll_sum + (ll * mc).sum()
             m_sum = m_sum + mc.sum()
-    return -ll_sum / torch.clamp(m_sum, min=1.0)
+    return -total(ll_sum) / torch.clamp(total(m_sum), min=1.0)
 
 
 def split_batch(batch):
@@ -66,16 +74,23 @@ def head_loss(model, x, targets, mask):
     config.xent_chunk set (and S divisible by it) the head and softmax run
     per sequence chunk."""
     c = model.config
+    mesh = mesh_of(model)
+    data = (*mesh.data_axes, SP_AXIS)
+
+    def total(t):
+        return allreduce_sum(t, data, mesh=mesh)
+
     if c.xent_chunk and targets.shape[1] % c.xent_chunk == 0:
-        return chunked_xent(x, model.head_weight, targets, mask, c.xent_chunk, c.dtype)
+        return chunked_xent(x, model.head_weight, targets, mask, c.xent_chunk, c.dtype, total)
     logits = model.head(x)
     # lse − target_logit in f32
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, targets[..., None].long())[..., 0] - lse
     if mask is None:
-        return -ll.mean()
+        # every rank holds as many tokens: the mean of the ranks' means
+        return allreduce_mean(-ll.mean(), data, mesh=mesh)
     mask = mask.float()
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return -total((ll * mask).sum()) / torch.clamp(total(mask.sum()), min=1.0)
 
 
 def next_token_loss(model, batch):

@@ -319,6 +319,43 @@ def flash_attention_bhsd(q, k, v, scale: float | None = None):
     return _FlashAttention.apply(q, k, v, scale or 1.0 / math.sqrt(q.shape[-1]))
 
 
+def sharded_flash_attention_bhsd(q, k, v, scale: float | None = None, *, mesh=None):
+    """Flash attention on each rank's block under a mesh (default: the
+    current one).
+
+    The kernels cannot be partitioned by DTensor's propagation, so they run
+    through ``local_map`` over (batch → data axes, heads → tp), the
+    reference's ``shard_map`` spec, on the local block; the sequence stays
+    whole, since sp sharding belongs to ring attention.  q, k, v are
+    DTensors in that layout, or this rank's local blocks (B_local, H_local,
+    S, D), which are wrapped as such and unwrapped again.  With no mesh (or
+    one without a process group) this is :func:`flash_attention_bhsd`.
+    """
+    if mesh is None:
+        from ray_tpu_torch.parallel.mesh import current_mesh
+
+        mesh = current_mesh()
+    if mesh is None or mesh.torch_mesh is None:
+        return flash_attention_bhsd(q, k, v, scale)
+    from ray_tpu_torch.parallel.mesh import SP_AXIS, TP_AXIS
+    from ray_tpu_torch.parallel.sharding import PartitionSpec, spec_placements
+
+    if mesh.size(SP_AXIS) > 1:
+        raise ValueError("flash attention keeps the sequence whole on each rank; "
+                         "shard it over sp with ring attention")
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+
+    # a list: local_map reads a tuple of out_placements as one per output
+    placements = list(spec_placements(mesh, PartitionSpec(mesh.data_axes, TP_AXIS)))
+    fn = local_map(functools.partial(flash_attention_bhsd, scale=scale), out_placements=placements,
+                   in_placements=(placements,) * 3, device_mesh=mesh.torch_mesh)
+    if isinstance(q, DTensor):
+        return fn(q, k, v)
+    q, k, v = (DTensor.from_local(t, mesh.torch_mesh, placements, run_check=False) for t in (q, k, v))
+    return fn(q, k, v).to_local()
+
+
 def flash_attention(q, k, v, scale: float | None = None):
     """Causal flash attention.  q, k, v: (B, S, H, D) → (B, S, H, D).
 

@@ -15,11 +15,13 @@ Quick shape::
     w = col.broadcast_object(w if r == 0 else None, src_rank=0)
     col.destroy_collective_group()
 
-Backend: ``"rpc"`` (alias ``"gloo"``; ring algorithms over the duplex
-worker RPC plane, zero-copy shm-arena handoff between co-hosted ranks).
-The reference's ``"jax"`` gang and in-program ``"xla"`` adapter have no
-counterpart yet (an NCCL gang and torch device-mesh ops, ROADMAP A4):
-asking for them raises ``CollectiveError``.
+Backends: ``"rpc"`` (alias ``"gloo"``; ring algorithms over the duplex
+worker RPC plane, zero-copy shm-arena handoff between co-hosted ranks) and
+``"nccl"`` (the members' own ``torch.distributed`` gang: NCCL where their
+leases hold cards, gloo where they do not).  The in-program
+``"device_mesh"`` adapter names the collectives over a mesh's axes
+(``ray_tpu_torch.parallel.collectives``).  The reference's ``"jax"`` gang
+and ``"xla"`` adapter raise ``CollectiveError`` naming these.
 
 ``broadcast_tree`` also carries ``torch.Tensor`` leaves, dtype and shape
 kept; torch is reached through ``sys.modules``, never imported here.

@@ -8,13 +8,14 @@ is actually created.
 
 ``runtime`` backends implement the async op surface of
 :class:`RuntimeBackend` and move data between processes at runtime (RPC
-plane + shm arena).  The reference also registers a ``jax.distributed``
-gang (``"jax"``) and an in-program XLA adapter (``"xla"``); their
-counterparts here, an NCCL gang and in-program ops over torch's device
-mesh, are ROADMAP A4, and asking for either name raises
-``CollectiveError``.  The ``in_program`` kind stays in the table for a
-backend that registers itself as one: ``init_collective_group`` refuses
-such a backend with a pointer to the right usage.
+plane + shm arena, or a ``torch.distributed`` gang: ``"nccl"``).  The
+``in_program`` backend ``"device_mesh"`` names the collectives over a
+mesh's axes inside the program every rank runs
+(``ray_tpu_torch.parallel.collectives``); ``init_collective_group``
+refuses it for runtime groups with a pointer to the right usage.  The
+reference's names for its JAX counterparts (``"jax"``, ``"mesh"``,
+``"xla"``, ``"ici"``) raise ``CollectiveError`` naming the torch backend
+that takes their place.
 """
 
 from __future__ import annotations
@@ -130,19 +131,20 @@ def backend_kind(name: str) -> str:
     return entry.kind
 
 
-# The reference's backends that this package does not have yet, by name
-# and alias: what each stands for.
-_GANG = "a jax.distributed gang (its counterpart is an NCCL gang)"
-_IN_PROGRAM = "in-program XLA collectives (their counterpart is torch's device mesh)"
-_NOT_PORTED = {"jax": _GANG, "mesh": _GANG, "xla": _IN_PROGRAM, "ici": _IN_PROGRAM}
+# The reference's names for its JAX backends, by name and alias: what
+# each stands for, and the torch backend that takes its place.
+_GANG = ("a jax.distributed gang", "nccl")
+_IN_PROGRAM = ("in-program XLA collectives", "device_mesh")
+_JAX_ONLY = {"jax": _GANG, "mesh": _GANG, "xla": _IN_PROGRAM, "ici": _IN_PROGRAM}
 
 
 def _refuse_not_ported(name: str) -> None:
-    what = _NOT_PORTED.get(name)
-    if what is not None:
+    if name in _JAX_ONLY:
+        what, torch_name = _JAX_ONLY[name]
         raise CollectiveError(
-            f"collective backend {name!r}, {what}, is not ported yet "
-            f"(ROADMAP A4); use 'rpc' (alias 'gloo') for runtime groups"
+            f"collective backend {name!r}, {what}, is JAX's; its torch "
+            f"counterpart is {torch_name!r} (or 'rpc', alias 'gloo', for "
+            f"arbitrary runtime groups)"
         )
 
 
@@ -150,4 +152,9 @@ def _refuse_not_ported(name: str) -> None:
 register_backend(
     "rpc", "ray_tpu_torch.util.collective.rpc_backend:RpcRingBackend",
     aliases=("gloo",),
+)
+register_backend("nccl", "ray_tpu_torch.util.collective.nccl_backend:NcclGangBackend")
+register_backend(
+    "device_mesh", "ray_tpu_torch.parallel.collectives:MeshInProgramBackend",
+    kind="in_program",
 )

@@ -233,9 +233,17 @@ class TestConfig:
         assert gpt2.num_params(cfg) == jax_gpt2.num_params(jcfg)
         assert gpt2.flops_per_token(cfg, 512) == jax_gpt2.flops_per_token(jcfg, 512)
 
-    def test_unported_options_raise(self):
-        with pytest.raises(NotImplementedError):
-            gpt2.GPT2(gpt2.GPTConfig.tiny(attention_impl="ring"), device="cpu")
+    def test_unported_options_raise(self, np_params):
+        """Every attention_impl of the reference is ported and an unknown
+        one raises: "ring" with no mesh is dense attention (the reference's
+        semantics), logits bit for bit."""
+        with pytest.raises(ValueError, match="attention_impl"):
+            gpt2.GPT2(gpt2.GPTConfig.tiny(attention_impl="paged"), device="cpu")
+        tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 16)))
+        ring, dense = (gpt2_params_from_jax(np_params, gpt2.GPTConfig.tiny(attention_impl=impl), "cpu")
+                       for impl in ("ring", "dense"))
+        with torch.no_grad():
+            assert torch.equal(ring(tokens), dense(tokens))
 
     def test_convert_rejects_wrong_shapes(self, np_params):
         cfg = gpt2.GPTConfig.tiny(embed_dim=32)
@@ -258,12 +266,14 @@ def test_flash_config_calls_the_flash_wrapper_at_any_head_dim(monkeypatch, embed
 
     cfg = gpt2.GPTConfig.tiny(attention_impl="flash", embed_dim=embed_dim, num_heads=heads, dtype=dtype)
     calls = []
+    flash = fa.flash_attention_bhsd
 
     def counted(q, k, v, scale=None):
         calls.append(tuple(q.shape))
-        return fa.flash_attention_bhsd(q, k, v, scale)
+        return flash(q, k, v, scale)
 
-    monkeypatch.setattr(gpt2, "flash_attention_bhsd", counted)
+    # the model reaches it through sharded_flash_attention_bhsd
+    monkeypatch.setattr(fa, "flash_attention_bhsd", counted)
     model = gpt2.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     with torch.inference_mode():
         out = model(torch.randint(0, 256, (2, 128), generator=torch.Generator().manual_seed(1)))

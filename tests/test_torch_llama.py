@@ -310,8 +310,11 @@ class TestOutOfRange:
             llama.forward_cached(_port(np_params, cfg), torch.zeros((1, 8), dtype=torch.long), cache, 0)
 
     def test_ring_attention_not_ported(self):
-        with pytest.raises(NotImplementedError):
-            llama.Llama(llama.LlamaConfig.tiny(attention_impl="ring"), device="cpu")
+        """Ring attention is ported; with a sliding window it raises, as the
+        reference's does."""
+        llama.Llama(llama.LlamaConfig.tiny(attention_impl="ring"), device="cpu")
+        with pytest.raises(NotImplementedError, match="sliding_window with ring attention"):
+            llama.Llama(llama.LlamaConfig.tiny(attention_impl="ring", sliding_window=8), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["tiny", "llama2_7b", "mistral_7b"])

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "step_probe.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -51,10 +51,13 @@ def test_no_reference_module_strings(path):
     assert not bad, f"{path.name} names reference modules in strings: {bad}"
 
 
+# Not the control plane: the LLM engine, and the NCCL gang backend, which is
+# loaded only by a group that asks for it, in a process of a torch gang.
+DATA_PLANE = ("ray_tpu_torch/serve/llm.py", "ray_tpu_torch/util/collective/nccl_backend.py")
 CONTROL_PLANE = sorted(
     p for d in ("common", "_native", "accelerators", "util/collective", "serve", "serve/traffic")
     for p in (REPO / "ray_tpu_torch" / d).glob("*.py")
-    if p.relative_to(REPO).as_posix() != "ray_tpu_torch/serve/llm.py"
+    if p.relative_to(REPO).as_posix() not in DATA_PLANE
 ) + [REPO / "ray_tpu_torch" / "core" / f for f in ("gcs.py", "raylet.py", "node.py")]
 
 

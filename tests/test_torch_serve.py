@@ -126,15 +126,23 @@ def test_tree_strip_keeps_non_f32_tensors_exact():
 
 
 def test_dropped_backends_raise():
+    """The reference's JAX-only backend names raise, naming the torch
+    backend in their place; "nccl" and "device_mesh" resolve."""
+    from ray_tpu_torch.parallel.collectives import MeshInProgramBackend
     from ray_tpu_torch.util.collective import backend
+    from ray_tpu_torch.util.collective.nccl_backend import NcclGangBackend
 
-    for name in ("jax", "mesh", "xla", "ici"):
-        with pytest.raises(CollectiveError, match="A4"):
+    for name, torch_name in (("jax", "nccl"), ("mesh", "nccl"), ("xla", "device_mesh"),
+                             ("ici", "device_mesh")):
+        with pytest.raises(CollectiveError, match=f"torch counterpart is '{torch_name}'"):
             backend.resolve_backend(name)
-        with pytest.raises(CollectiveError, match="A4"):
+        with pytest.raises(CollectiveError, match=f"torch counterpart is '{torch_name}'"):
             backend.backend_kind(name)
-    assert backend.available_backends() == {"rpc": "runtime"}
+    assert backend.available_backends() == {"rpc": "runtime", "nccl": "runtime",
+                                            "device_mesh": "in_program"}
     assert backend.resolve_backend("gloo") is backend.resolve_backend("rpc")
+    assert backend.resolve_backend("nccl") is NcclGangBackend
+    assert backend.resolve_backend("device_mesh") is MeshInProgramBackend
 
 
 # -- seams that need no cluster ----------------------------------------------
