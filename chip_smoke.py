@@ -162,10 +162,10 @@ library's port, whose blocks are Arrow tables):
      checksummed.  Prints each trial's lr, iterations, start and first
      report with its parts, step ms beside phase 6's and the gap between
      trials; after shutdown() no process of the driver may remain.
-Phase 17 runs after phase 6 and before phase 7, phase 18 last (its
-spawned ranks leave multiprocessing's resource tracker running until the
-script exits, and phases 7, 11-13 and 16 require that no process this
-script started outlive their shutdown()):
+Phases 17, 19 and 20 run after phase 6 and before phase 7, in that order,
+phase 18 last (its spawned ranks leave multiprocessing's resource tracker
+running until the script exits, and phases 7, 11-13, 16 and 20 require
+that no process this script started outlive their shutdown()):
   17. [spmd] (this slice's main path): phase 6's training through the
      mesh path: an NCCL process group of one (tcp://localhost, a free
      port), make_mesh(MeshConfig(dp=1), device_type="cuda") (one torch mesh
@@ -182,14 +182,38 @@ script started outlive their shutdown()):
      the host's CPU (the card's machine has one GPU, and NCCL puts one
      rank on a card):
      ring attention over sp = 2 with tp = 2, GPT-2 with experts over
-     ep = 2 x tp = 2, tp-sharded Llama prefill and decode, ViT over
-     fsdp = 2 x tp = 2 and the gang's cross-process sum, each pass's OK
-     line printed; its losses are CPU numbers.
+     ep = 2 x tp = 2, GPipe over a pp mesh of 4 stages, tp-sharded Llama
+     prefill and decode, ViT over fsdp = 2 x tp = 2 and the gang's
+     cross-process sum, each pass's OK line printed; its losses are CPU
+     numbers;
+  19. [pipeline] (this slice's main path): phase 6's training through the
+     MPMD pipeline's stage programs, in LocalPipelineRunner on the card:
+     GPT-2-124M from phase 6's seed, cut by models.pp into 4 stages of 3
+     layers (first, middle and last roles all run), phase 6's (8, 1025)
+     batch as 4 microbatches of 2 rows, AdamW(3e-4, weight decay 0.1), 3 +
+     10 steps.  Each step must launch the forward kernel 84 times (per
+     microbatch, the 9 layers of the three non-last stages twice, forward
+     and recompute, the last stage's 3 once) and dq and dk/dv 48 times
+     each; every loss finite, the loss falling by more than 0.1, the first
+     within PIPE_FIRST_TOL of phase 6's and all within PIPE_LOSS_TOL.
+     Prints step ms, tokens/s and peak memory beside phase 6's, the
+     largest loss difference and one profiled step's device time by
+     kernel group;
+  20. [pipeline-mpmd]: the port's runtime starts (init(num_cpus=4)) and
+     PipelineTrainer runs the reference's bit-parity configuration (the
+     tiny GPT-2 at 3 layers, 3 stages of CPU stage actors, 4 microbatches
+     of 2 rows, sequence 32, Adam 1e-3) for 3 steps under the "p2p" and
+     the "driver" handoff: losses and gathered parameters must equal
+     LocalPipelineRunner's bit for bit, each micro-op run once.  A
+     device="cuda" trainer of 2 stages must then be refused within 30 s,
+     naming 2 cards wanted and the node's 1, with no process started;
+     after shutdown() no process of the driver may remain.
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches on the training path (the forward kernel's in the
 runtime's GPU worker, "runtime_launches"; each kernel's in the trainer's
 worker, "fit_launches", in the Tune trials' processes, "tune_launches",
-in [moe], "moe_launches", and through the mesh path, "spmd_launches"),
+in [moe], "moe_launches", through the mesh path, "spmd_launches", and
+through the pipeline's stage programs, "pipeline_launches"),
 error against its plain version,
 time, the plain version's time, the library call's time and the card's
 bound; the last line is {"ok": true, "device": {...}}.  With no CUDA device
@@ -902,12 +926,168 @@ def phase_dryrun():
     for line in lines:
         _log("dryrun", line)
     passes = [line.split(":")[0] for line in lines]
-    _require(passes == ["dryrun_multigpu OK", "dryrun_multigpu MoE OK", "dryrun_multigpu decode OK",
-                        "dryrun_multigpu vit OK", "dryrun_multigpu distributed OK"],
+    _require(passes == ["dryrun_multigpu OK", "dryrun_multigpu MoE OK", "dryrun_multigpu pipeline OK",
+                        "dryrun_multigpu decode OK", "dryrun_multigpu vit OK",
+                        "dryrun_multigpu distributed OK"],
              f"[dryrun] passes {passes}")
     _log("dryrun", f"{len(lines)} passes over {DRYRUN_RANKS} gloo ranks on the CPU in "
                    f"{time.perf_counter() - t0:.1f} s (losses are CPU numbers)")
     return lines
+
+
+# [pipeline]: [train]'s weights (seed 1) and batch through the MPMD
+# pipeline's single-gang runner on the card: GPT-2-124M cut into 4 stages of 3
+# layers (first, middle and last roles all run), 4 microbatches of 2 rows.
+PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 4, 4, 2
+# Its losses against [train]'s: the same weights, tokens and AdamW, in bf16;
+# what differs is the reduction order (4 microbatches of 2 rows, their
+# gradients summed in f32, against one batch of 8), the GEMMs' row counts
+# and the tied embedding's gradient (two halves summed, against one
+# backward).  The first loss sees the same weights and differs only by the
+# GEMMs' and the mean's summation order; over 13 steps AdamW carries the
+# gradients' differences into the weights.
+PIPE_FIRST_TOL = 2e-3
+PIPE_LOSS_TOL = 2e-2
+# [pipeline-mpmd]: the reference's bit-parity configuration
+# (tests/test_zz_pipeline.py), CPU stage actors on the host.
+MPMD_LAYERS, MPMD_STAGES, MPMD_STEPS = 3, 3, 3
+
+
+def pipeline_launches(cfg, n_stages, n_micro):
+    """Each flash kernel's launches in one step of the MPMD pipeline: per
+    microbatch, every non-last stage's layers run the forward kernel twice
+    (the forward, then its recompute in the backward), the last stage's
+    once, and every layer launches dq and dk/dv once."""
+    L = cfg.num_layers
+    return {"fwd": n_micro * (2 * L - L // n_stages), "dq": n_micro * L, "dkv": n_micro * L}
+
+
+def phase_pipeline(fa, gpt2, cfg, tokens, train_out, smi):
+    """[pipeline]: [train]'s 3 + 10 steps through LocalPipelineRunner on
+    the card, [train]'s seed-1 weights carried in through the cut."""
+    from ray_tpu_torch.models import pp
+    from ray_tpu_torch.train import pipeline as tp
+
+    _require(PIPE_MICRO * PIPE_ROWS == tokens.shape[0], f"[pipeline] batch {tuple(tokens.shape)}")
+    pc = tp.PipelineConfig(model_config=cfg, n_stages=PIPE_STAGES, n_micro=PIPE_MICRO,
+                           micro_batch=PIPE_ROWS, seq_len=tokens.shape[1] - 1,
+                           optimizer={"name": "adamw", "lr": 3e-4, "weight_decay": 0.1}, device=DEVICE)
+    model = gpt2.init(cfg, torch.Generator(device=DEVICE).manual_seed(1), DEVICE)
+    runner = tp.LocalPipelineRunner(pc, pp.get_partition("gpt2", cfg).to_pp(model, PIPE_STAGES))
+    del model
+    batch = tokens.reshape(PIPE_MICRO, PIPE_ROWS, -1)
+    x, y = batch[..., :-1], batch[..., 1:]
+    want = pipeline_launches(cfg, PIPE_STAGES, PIPE_MICRO)
+    losses, samples = [], []
+    torch.cuda.reset_peak_memory_stats()
+    _flash_counts_zero(fa)
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        before = _counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(runner.run_step(x, y))
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+        per_step = {k: v - before[k] for k, v in _counts(fa).items()}
+        _require(per_step == want, f"[pipeline] step {i}: launches {per_step}, expected {want}")
+    launches = _counts(fa)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    diffs = [abs(a - b) for a, b in zip(losses, train_out["losses"])]
+    ms, q25, q75 = _spread(samples[TRAIN_WARMUP:])
+    n_tokens = PIPE_MICRO * PIPE_ROWS * pc.seq_len
+    # two more steps (a warm-up and the profiled one), after the checks'
+    # counts were read
+    busy = (phase_profile(lambda: runner.run_step(x, y), "one [pipeline] step", ms, top=8)
+            if DEVICE == "cuda" else None)
+    _log("pipeline", "loss " + " ".join(f"{v:.4f}" for v in losses))
+    _log("pipeline", f"{PIPE_STAGES} stages of {cfg.num_layers // PIPE_STAGES} layers, {PIPE_MICRO} "
+                     f"microbatches of {PIPE_ROWS} rows; kernel launches {launches} ({want} per step); "
+                     f"|loss - [train]'s|: first {diffs[0]:.3g} (bound {PIPE_FIRST_TOL}), largest "
+                     f"{max(diffs):.3g} (bound {PIPE_LOSS_TOL})")
+    _log("pipeline", f"{smi}: step {ms:.3f} ms (median of {TRAIN_STEPS}, quartiles {q25:.3f}..{q75:.3f}) "
+                     f"beside [train]'s {train_out['step_ms']:.3f} ms; {n_tokens / ms * 1e3:.0f} tokens/s "
+                     f"beside {train_out['tokens_per_s']:.0f}; peak memory {peak:.2f} GiB beside "
+                     f"[train]'s {train_out['peak_gib']:.2f} GiB")
+    _require(all(math.isfinite(v) for v in losses), f"[pipeline] non-finite loss: {losses}")
+    _require(losses[-1] < losses[0] - 0.1, f"[pipeline] loss did not fall: {losses}")
+    _require(diffs[0] <= PIPE_FIRST_TOL, f"[pipeline] first loss {losses[0]} against [train]'s "
+                                         f"{train_out['losses'][0]}")
+    _require(max(diffs) <= PIPE_LOSS_TOL, f"[pipeline] losses differ from [train]'s by up to {max(diffs)}")
+    return {"launches": launches, "per_step": want, "losses": losses, "first_loss_diff": diffs[0],
+            "max_loss_diff": max(diffs), "step_ms": ms, "tokens_per_s": n_tokens / ms * 1e3,
+            "peak_gib": peak, "busy_ms": busy}
+
+
+def phase_pipeline_mpmd(smi):
+    """[pipeline-mpmd]: PipelineTrainer over CPU stage actors on the port's
+    runtime, bit for bit against LocalPipelineRunner under both handoffs;
+    then a "cuda" trainer wanting more cards than the node has is refused."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import pipeline as tp
+
+    cfg = gpt2.GPTConfig.tiny(num_layers=MPMD_LAYERS, max_seq_len=32)
+    out = {}
+    t0 = time.perf_counter()
+    rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+    try:
+        for handoff in ("p2p", "driver"):
+            pc = tp.PipelineConfig(model_config=cfg, n_stages=MPMD_STAGES, n_micro=4, micro_batch=2,
+                                   seq_len=32, optimizer={"name": "adam", "lr": 1e-3},
+                                   name=f"chip-smoke-{handoff}", handoff=handoff, device="cpu")
+            batches = tp.synthetic_batches(pc, MPMD_STEPS)
+            trainer = tp.PipelineTrainer(pc)
+            t1 = time.perf_counter()
+            try:
+                trainer.start()
+                t2 = time.perf_counter()
+                losses = trainer.train(batches)
+                t3 = time.perf_counter()
+                got = trainer.gather_params().state_dict()
+                executed = sum(c["executed"] for lanes in trainer.counters() for c in lanes)
+            finally:
+                trainer.shutdown()
+            ref = tp.LocalPipelineRunner(pc)
+            want = ref.train(batches)
+            want_params = ref.gather_params().state_dict()
+            same = [k for k in want_params if torch.equal(got[k], want_params[k])]
+            _log("pipeline-mpmd", f"{handoff}: losses {losses} against the local runner's {want}; "
+                                  f"{len(same)} of {len(want_params)} parameters bit-equal; "
+                                  f"{executed} micro-ops (ideal {trainer.ideal_micro_ops(MPMD_STEPS)}); "
+                                  f"start {t2 - t1:.2f} s, {MPMD_STEPS} steps {t3 - t2:.2f} s")
+            _require(losses == want, f"[pipeline-mpmd] {handoff}: losses {losses} != {want}")
+            _require(len(same) == len(want_params), f"[pipeline-mpmd] {handoff}: parameters differ")
+            _require(executed == trainer.ideal_micro_ops(MPMD_STEPS),
+                     f"[pipeline-mpmd] {handoff}: {executed} micro-ops executed")
+            out[handoff] = {"losses": losses, "start_s": t2 - t1, "steps_s": t3 - t2}
+        # A "cuda" pipeline of 2 stages on this node, which has one card:
+        # refused at start(), before any stage is placed.
+        cards = rt.cluster_resources().get("GPU", 0)
+        _require(cards == 1, f"[pipeline-mpmd] the cluster has {cards} GPU(s), expected this node's 1")
+        before, avail = set(_descendants(os.getpid())), rt.available_resources()
+        t1 = time.perf_counter()
+        try:
+            tp.PipelineTrainer(tp.PipelineConfig(model_config=gpt2.GPTConfig.tiny(), n_stages=2,
+                                                 name="chip-smoke-refused")).start()
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        refuse_s = time.perf_counter() - t1
+        started = set(_descendants(os.getpid())) - before
+        _log("pipeline-mpmd", f"a cuda trainer of 2 stages on {cards:g} card(s): {refused!r} after "
+                              f"{refuse_s:.3f} s; processes started {sorted(started)}")
+        _require(refused is not None and "wants 2 GPU(s)" in refused and "the cluster has 1" in refused,
+                 f"[pipeline-mpmd] the cuda trainer was not refused naming 2 and 1: {refused!r}")
+        _require(refuse_s < 30, f"[pipeline-mpmd] the refusal took {refuse_s:.1f} s")
+        _require(not started and rt.available_resources() == avail,
+                 f"[pipeline-mpmd] the refused trainer started {sorted(started)}")
+        out["refused"] = refused
+    finally:
+        _shutdown_checked(rt, rt_api, "pipeline-mpmd")
+    _log("pipeline-mpmd", f"shutdown(): no process of the driver remains; {time.perf_counter() - t0:.1f} s "
+                          f"in all ({smi})")
+    return out
 
 
 def phase_grad_flash_vs_dense(gpt2, model, tokens):
@@ -2782,6 +2962,14 @@ def main() -> int:
     spmd_out = phase_spmd(fa, gpt2, cfg, tokens[0], train, smi)
     torch.cuda.empty_cache()
     _log("done", f"[spmd] {time.perf_counter() - t0:.1f} s")
+    # The same training through the pipeline's stage programs (this slice's
+    # main path), then the MPMD trainer over stage actors on the host.
+    t0 = time.perf_counter()
+    pipe = phase_pipeline(fa, gpt2, cfg, tokens[0], train, smi)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    mpmd = phase_pipeline_mpmd(smi)
+    _log("done", f"[pipeline] {t1 - t0:.1f} s, [pipeline-mpmd] {time.perf_counter() - t1:.1f} s")
     # The runtime path: the same GPT-2-124M, from seed 0, through the port's
     # runtime into a GPU-leased worker.
     runtime = phase_runtime(fa, gpt2, cfg, tokens[0], smi)
@@ -2844,10 +3032,12 @@ def main() -> int:
         entry["tune_launches"] = tune_out["launches"][key]
         entry["moe_launches"] = moe["launches"][key]
         entry["spmd_launches"] = spmd_out["launches"][key]
+        entry["pipeline_launches"] = pipe["launches"][key]
     print(json.dumps({"forward_ms": fwd, "forward_path_fwd_launches": fwd_launches,
                       "train_step_ms": train["step_ms"], "train_tokens_per_s": train["tokens_per_s"],
                       "head_backward_ms": head, "runtime": runtime, "fit": fit, "tune": tune_out, "moe": moe,
-                      "vit": vit_out, "spmd": spmd_out, "dryrun": dryrun_lines, **llama_out,
+                      "vit": vit_out, "spmd": spmd_out, "pipeline": pipe, "pipeline_mpmd": mpmd,
+                      "dryrun": dryrun_lines, **llama_out,
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

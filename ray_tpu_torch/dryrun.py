@@ -7,14 +7,18 @@ reference's dry run covers:
 1. GPT-2 with ring attention over a mesh using every axis it can (tp, sp,
    fsdp, dp), inputs sharded over the data axes and the sequence over sp;
 2. GPT-2 with experts over a mesh with a real ep axis;
+3. (n >= 2) pipeline parallelism: GPipe microbatching over a pp mesh of 4
+   stages (2 where n < 4), the activations passed on by a ring permute, one
+   forward, backward and update;
+4. (n >= 8, n % 4 == 0) GPT-2 cut into 2 pipeline stages on the six-axis
+   mesh, composed with dp and tp (dp2 x pp2 x tp2 at n = 8);
 5. (n >= 8) a multi-slice mesh, data parallel over dcn;
 6. (n >= 4) tp-sharded Llama serving: a cached prefill and two row-wise
    decode steps;
 7. (n % 4 == 0) ViT over fsdp × tp;
 9. the gang's cross-process sum.
 
-The reference's passes 3 and 4 (pipeline parallelism) and 8 (RLlib) have no
-port yet.  Where the reference fails on an involuntary rematerialisation in
+The reference's pass 8 (RLlib) has no port yet.  Where the reference fails on an involuntary rematerialisation in
 XLA's partitioner, each pass here checks that every parameter, and the
 optimizer's state of each, is sharded as the rule table says.
 
@@ -88,6 +92,41 @@ def _batch_size(mc):
     return ((4 + shards - 1) // shards) * shards
 
 
+def _gpipe_pass(n: int, dev: str, seeded) -> str:
+    """Pass 3 (every rank calls it): tanh(x @ w + b) stages of width 16,
+    Adam(1e-2), 4 microbatches of 2 rows, on the first 4 ranks (2 where
+    n < 4); the others take the loss from rank 0."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from ray_tpu_torch.parallel import pipeline as pl
+    from ray_tpu_torch.parallel import spmd
+
+    n_stages = 4 if n >= 4 else 2
+    width = 16
+    g = seeded(2)
+    w = torch.stack([torch.randn((width, width), generator=g, device=dev) * 0.5
+                     for _ in range(n_stages)])
+    stacked = {"w": w, "b": torch.zeros((n_stages, width), device=dev)}
+    x = torch.randn((4, 2, width), generator=seeded(3), device=dev)
+    y = torch.randn((4, 2, width), generator=seeded(4), device=dev)
+    mesh = pl.make_pp_mesh(n_stages, device_type=dev)
+    loss = torch.zeros((1,), device=dev)
+    if mesh is not None:
+        params = {k: torch.nn.Parameter(distribute_tensor(v, mesh.torch_mesh, pl.stage_sharding(mesh),
+                                                          src_data_rank=None))
+                  for k, v in stacked.items()}
+        opt = spmd.adam(params.values(), 1e-2)
+        step = pl.pipeline_train_step(lambda p, h: torch.tanh(h @ p["w"] + p["b"]),
+                                      lambda o, t: ((o - t) ** 2).mean(), opt, mesh, n_micro=4)
+        loss += step(params, x, y)
+        if not math.isfinite(loss.item()):
+            raise AssertionError(f"non-finite pipeline loss {loss.item()}")
+    dist.broadcast(loss, 0)
+    return f"dryrun_multigpu pipeline OK: {n_stages} stages, loss={loss.item():.4f}"
+
+
 def _dryrun_rank(rank: int, n: int, device_type: str) -> List[str]:
     import torch
     import torch.distributed as dist
@@ -124,6 +163,33 @@ def _dryrun_rank(rank: int, n: int, device_type: str) -> List[str]:
                            gpt2.loss_fn, {"inputs": toks, "targets": toks})
         lines.append(f"dryrun_multigpu MoE OK: mesh={mc_ep.describe()}, experts={cfg.num_experts}, "
                      f"loss={loss:.4f}")
+
+    # 3: pipeline parallelism: GPipe over a pp mesh, the stacked stage
+    # parameters split over pp (stage_sharding).
+    if n >= 2:
+        lines.append(_gpipe_pass(n, dev, seeded))
+
+    # 4: GPT-2 cut into pipeline stages on the six-axis mesh, with dp and tp.
+    if n >= 8 and n % 4 == 0:
+        from ray_tpu_torch.models import pp
+
+        mc_pp = mesh_mod.MeshConfig(dp=-1, pp=2, tp=2).resolve(n)
+        mesh = mesh_mod.make_mesh(mc_pp, device_type=dev)
+        cfg = gpt2.GPTConfig.tiny()  # 2 layers -> 2 stages
+        part = pp.gpt2_partition(cfg)
+        logical = part.param_logical_axes()
+        params = pp.shard_pp_params(mesh, part.to_pp(gpt2.init(cfg, seeded(5), dev), 2), logical)
+        opt = spmd.adam(params.parameters(), 1e-3)
+        step = pp.gpt2_pp_train_step(cfg, mesh, opt, n_micro=4)
+        toks = torch.zeros((4, max(2, mc_pp.dp), 33), dtype=torch.long, device=dev)
+        loss = step(params, toks[..., :-1], toks[..., 1:]).item()
+        if not math.isfinite(loss):
+            raise AssertionError(f"non-finite pipeline loss {loss}")
+        stage = params["stages"][0]
+        _check_layout(mesh, stage, pp.stage_logical_axes(logical, len(stage)), opt)
+        _check_layout(mesh, params["tail"], pp.tail_logical_axes(logical), opt)
+        lines.append(f"dryrun_multigpu gpt2-pp OK: mesh={mc_pp.describe()}, loss={loss:.4f}")
+        mesh_mod.set_current_mesh(None)
 
     # 5: a multi-slice mesh: data parallelism over dcn, tp inside a slice.
     if n >= 8 and n % 2 == 0:

@@ -76,3 +76,49 @@ def vit_params_from_jax(np_params, config: ViTConfig, device="cuda") -> ViT:
     top = ("patch_kernel", "patch_bias", "pos_embed", "lnf_scale", "lnf_bias",
            "head_kernel", "head_bias")
     return _load(ViT(config, device), np_params, top, config.num_layers)
+
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def _stacked(blocks) -> dict:
+    """Every block leaf stacked over ``blocks``, as the reference keeps it."""
+    return {name: np.stack([_np(getattr(blk, name)) for blk in blocks])
+            for name, _ in blocks[0].named_parameters()}
+
+
+def params_to_jax(model: nn.Module) -> dict:
+    """The way back: ``model``'s parameters as the reference's pytree of f32
+    numpy arrays, each top-level parameter under its name and every block
+    leaf stacked over layers under ``blocks``."""
+    out = {name: _np(p) for name, p in model.named_parameters(recurse=False)}
+    out["blocks"] = _stacked(model.blocks)
+    return out
+
+
+_FROM_JAX = {"gpt2": gpt2_params_from_jax, "llama": llama_params_from_jax}
+
+
+def pp_params_from_jax(np_pp_params, partition, device="cuda") -> nn.ModuleDict:
+    """The port's cut (``models.pp``) of the reference's cut pytree
+    ``{"stages": leaves (n_stages, L / n_stages, ...), "tail": ...}`` for
+    ``partition`` (a ``models.pp.ModelPartition``), on ``device``."""
+    stages = np_pp_params["stages"]
+    n_stages = {np.shape(v)[0] for v in stages.values()}
+    if len(n_stages) != 1:
+        raise ValueError(f"stage leaves disagree on the stage count: {sorted(n_stages)}")
+    blocks = {k: np.reshape(v, (-1,) + np.shape(v)[2:]) for k, v in stages.items()}
+    model = _FROM_JAX[partition.name]({**np_pp_params["tail"], "blocks": blocks}, partition.config,
+                                      device)
+    return partition.to_pp(model, n_stages.pop())
+
+
+def pp_params_to_jax(pp_params: nn.ModuleDict) -> dict:
+    """The way back from :func:`pp_params_from_jax`: a cut model as the
+    reference's cut pytree of f32 numpy arrays."""
+    stages = pp_params["stages"]
+    blocks = _stacked([blk for stage in stages for blk in stage])
+    return {"stages": {k: v.reshape((len(stages), -1) + v.shape[1:]) for k, v in blocks.items()},
+            "tail": {name: _np(p) for name, p in pp_params["tail"].named_parameters(recurse=False)}}

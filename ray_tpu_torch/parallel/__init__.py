@@ -1,8 +1,8 @@
-"""SPMD parallelism over torch device meshes (dp/fsdp/ep/sp/tp), port of
+"""SPMD parallelism over torch device meshes (dp/fsdp/ep/pp/sp/tp), port of
 ``ray_tpu/parallel``: mesh construction over a process group's ranks
 (``mesh``), logical-axis sharding rules (``sharding``), collectives over a
-mesh's axes (``collectives``) and the sharded training step (``spmd``).
-The reference's in-program pipeline (``pipeline``) is not ported yet."""
+mesh's axes (``collectives``), the sharded training step (``spmd``) and
+GPipe over the pp axis (``pipeline``)."""
 
 from ray_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ORDER,

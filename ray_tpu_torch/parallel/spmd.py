@@ -77,6 +77,25 @@ def adamw(params, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     )
 
 
+def adam(params, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> torch.optim.Adam:
+    """``optax.adam`` as ``torch.optim.Adam``, with optax's defaults: eps is
+    added outside the square root of the bias-corrected second moment, as
+    in :func:`adamw`, and DTensor parameters are stepped by the foreach
+    kernels."""
+    params = list(params)
+    sharded = any(isinstance(p, _dtensor()) for p in params) or None
+    return torch.optim.Adam(params, lr=learning_rate, betas=(b1, b2), eps=eps, foreach=sharded)
+
+
+def sgd(params, learning_rate: float, momentum: Optional[float] = None) -> torch.optim.SGD:
+    """``optax.sgd`` as ``torch.optim.SGD``: no momentum unless given (its
+    trace starts at the first gradient in both), no weight decay."""
+    params = list(params)
+    sharded = any(isinstance(p, _dtensor()) for p in params) or None
+    return torch.optim.SGD(params, lr=learning_rate, momentum=momentum or 0.0, foreach=sharded)
+
+
 def _dtensor():
     from torch.distributed.tensor import DTensor
 

@@ -113,6 +113,26 @@ def test_train_import_loads_no_torch_or_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_pipeline_schedule_is_torch_free():
+    """The 1F1B schedule is pure Python, as the reference's: it imports
+    nothing at any level but the standard library, and importing the
+    pipeline package and its schedule loads no torch (the package loads
+    its other modules when a name of theirs is read)."""
+    path = REPO / "ray_tpu_torch" / "train" / "pipeline" / "schedule.py"
+    tree = ast.parse(path.read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert names == ["__future__", "typing"]
+    code = ("import sys, ray_tpu_torch.train.pipeline as p, ray_tpu_torch.train.pipeline.schedule; "
+            "assert p.stage_ops(0, 2, 2) == [('F', 0), ('F', 1), ('B', 0), ('B', 1)]; "
+            "print(sorted(m for m in ('torch', 'jax') if m in sys.modules))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_tune_import_loads_no_torch_or_jax():
     """The Tune library (searchers, schedulers, the controller, the Tuner)
     needs no torch in the driver or in a trial actor: a trial's loop, or
@@ -140,6 +160,10 @@ def test_port_files_found():
                "serialization.py", "config.py", "resources.py", "store.py", "gpu.py",
                "placement_group.py", "actor_pool.py"}
     assert runtime <= names
+    pipeline = {p.relative_to(REPO).as_posix() for p in PORT_FILES if p.parent.name == "pipeline"}
+    assert pipeline == {f"ray_tpu_torch/train/pipeline/{n}.py" for n in
+                        ("__init__", "schedule", "partition", "stage", "driver")}
+    assert {"pp.py", "pipeline.py"} <= names
     serving = {"controller.py", "handle.py", "proxy.py", "replica.py", "weights.py",
                "admission.py", "scheduler.py", "collective.py", "rpc_backend.py",
                "quantize.py", "quant.py"}
