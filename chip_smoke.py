@@ -183,7 +183,8 @@ that no process this script started outlive their shutdown()):
      rank on a card):
      ring attention over sp = 2 with tp = 2, GPT-2 with experts over
      ep = 2 x tp = 2, GPipe over a pp mesh of 4 stages, tp-sharded Llama
-     prefill and decode, ViT over fsdp = 2 x tp = 2 and the gang's
+     prefill and decode, ViT over fsdp = 2 x tp = 2, a PPO learner's
+     update dp-sharded over the 4 ranks (pass 8) and the gang's
      cross-process sum, each pass's OK line printed; its losses are CPU
      numbers;
   19. [pipeline] (this slice's main path): phase 6's training through the
@@ -208,12 +209,40 @@ that no process this script started outlive their shutdown()):
      device="cuda" trainer of 2 stages must then be refused within 30 s,
      naming 2 cards wanted and the node's 1, with no process started;
      after shutdown() no process of the driver may remain.
+Phase 21 runs after phase 12 and before phase 18; a line "[probe]" after
+phase 1 says whether gymnasium can be imported (RLlib's env runners need
+it; the card's machine has not had it, so no env steps there):
+  21. [rllib]: the RLlib port's eight learners (PPO, DQN, IMPALA, APPO,
+     SAC, BC, CQL, MARWIL), each at its config's defaults and own batch,
+     at two shapes: the default MLP (64, 64) at CartPole's (obs 4, 2
+     actions) and the catalog's CNN at Atari's (84, 84, 4) frames, 6
+     actions.  Each learner is made three times from one seed, on the
+     card and on the CPU in f32 and on the CPU in f64 (TF32 off for the
+     card's products and convolutions), and fed the same 3 seeded
+     batches: the first update's gradients and the parameters after 3
+     updates of the card and of the CPU's f32 run are measured against the
+     f64 run tensor by tensor, and each of the card's tensors must be
+     within RL_GRAD_TOL / RL_PARAM_TOL of it or within RL_FLOOR_FACTOR of
+     the CPU's own f32 distance for that tensor; each update's ms on the
+     card and on the CPU are printed (median of 20 after 3).  Then PPO,
+     DQN and SAC are made as algorithms (the MLP, the env runners replaced
+     by seeded CartPole-shaped fragments) on the card, on the CPU and on
+     the CPU in f64, and take 3 training_steps each: the card's parameters
+     are held to the f64 run in the same way within RL_ALGO_TOL; the card
+     algorithm is saved and restored into a fresh card algorithm, whose
+     weights (and PPO's optimizer state) must come back bit for bit on the
+     card, and one more iteration of both must follow (PPO's within
+     RL_ALGO_TOL of the original's).  Then
+     PPOConfig().learners(2, device="cuda") must be refused on this
+     one-card node, naming 2 cards wanted and 1 there.
+     The flash kernels' counts are reset before and must read 0 after.
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches on the training path (the forward kernel's in the
 runtime's GPU worker, "runtime_launches"; each kernel's in the trainer's
 worker, "fit_launches", in the Tune trials' processes, "tune_launches",
-in [moe], "moe_launches", through the mesh path, "spmd_launches", and
-through the pipeline's stage programs, "pipeline_launches"),
+in [moe], "moe_launches", through the mesh path, "spmd_launches",
+through the pipeline's stage programs, "pipeline_launches", and in
+[rllib], "rllib_launches"),
 error against its plain version,
 time, the plain version's time, the library call's time and the card's
 bound; the last line is {"ok": true, "device": {...}}.  With no CUDA device
@@ -928,7 +957,7 @@ def phase_dryrun():
     passes = [line.split(":")[0] for line in lines]
     _require(passes == ["dryrun_multigpu OK", "dryrun_multigpu MoE OK", "dryrun_multigpu pipeline OK",
                         "dryrun_multigpu decode OK", "dryrun_multigpu vit OK",
-                        "dryrun_multigpu distributed OK"],
+                        "dryrun_multigpu rllib OK", "dryrun_multigpu distributed OK"],
              f"[dryrun] passes {passes}")
     _log("dryrun", f"{len(lines)} passes over {DRYRUN_RANKS} gloo ranks on the CPU in "
                    f"{time.perf_counter() - t0:.1f} s (losses are CPU numbers)")
@@ -1089,6 +1118,431 @@ def phase_pipeline_mpmd(smi):
                           f"in all ({smi})")
     return out
 
+
+# [rllib]: the eight learners' updates on the card against the same updates
+# on the CPU (same seed-drawn weights, same seeded batches, f32 with TF32 off
+# for convolutions and products), at two shapes: the reference's default MLP
+# (64, 64) at CartPole's (obs 4, 2 actions), and the catalog's CNN at Atari's
+# (84, 84, 4) frames with 6 actions (filters (16, 8, 4), (32, 4, 2), hidden
+# 256: Mnih et al., 2013; 9x9x32 features, 677,943 parameters), each at its
+# config's own batch.  The CPU runs the same updates twice, in f32 and in f64
+# (exact arithmetic's stand-in), and each f32 result is measured by its
+# distance from the f64 one, relative to the norm, tensor by tensor (the
+# largest is read): the first update's gradients and the parameters after
+# RL_UPDATES updates.  The card's distance must be within
+# RL_GRAD_TOL (gradients) and RL_PARAM_TOL (parameters), or within
+# RL_FLOOR_FACTOR times the CPU's own f32 distance, whichever is larger:
+# f32 itself is farther than that in places.  A sum that cancels loses
+# digits (the CPU's convolution gradients of BC's CNN stand 5e-4 from f64),
+# and Adam divides a gradient by its own size, so an element whose gradient
+# is near zero steps by up to lr on the sign of its rounding (the CPU's BC
+# CNN parameters stand 1.8e-4 from f64 after 3 updates at lr 1e-3).  The
+# factor leaves room for which elements' signs flip; each tensor has its
+# own floor, from the CPU's distance for that tensor.  The card's distance
+# from the CPU's f32 result is printed beside them.  On the H100 the card's
+# largest tensor distances read 1.1e-6 (gradients) and 4.3e-5 (parameters:
+# the CNN PPO's one-element value bias, whose gradient is a mean that
+# cancels as the value fits, over 12 Adam steps; 2.5e-5 for IMPALA's first
+# conv bias), so RL_PARAM_TOL stays 1e-4, now for every tensor.  The same
+# holds for RL_ALGO_ITERS training_steps of PPO, DQN and SAC through the
+# algorithms (LearnerGroup, GAE and advantage normalisation, replay
+# sampling, DQN's target sync, SAC's polyak averages) at the MLP, fed the
+# same seeded fragments by _SeededFragments in place of the env runners,
+# within RL_ALGO_TOL (the card reads 9e-7 there); then a save/restore onto
+# a fresh card algorithm must give back its weights (and PPO's optimizer
+# state) bit for bit on the card, and PPO's next iteration there must stay
+# within RL_ALGO_TOL of the original's.
+RL_SEED = 0
+RL_UPDATES = 3
+RL_ALGO_ITERS = 3
+RL_GRAD_TOL = 1e-5
+RL_PARAM_TOL = 1e-4
+RL_ALGO_TOL = 1e-5
+RL_FLOOR_FACTOR = 3.0
+RL_TIME_WARMUP, RL_TIME_ITERS = 3, 20
+RL_CNN_OBS, RL_CNN_ACTIONS = (84, 84, 4), 6
+RL_PROFILED = ("PPO", "DQN")  # one update of each profiled by kernel
+
+
+def _rl_batch(kind, mc, rows, rng):
+    """A seeded numpy batch of ``kind`` for module config ``mc``: Atari
+    frames in [0, 1), CartPole-like observations from a unit normal."""
+    import numpy as np
+
+    shape = getattr(mc, "obs_shape", None)
+    dim = int(np.prod(shape)) if shape else mc.obs_dim
+    A = mc.num_actions
+
+    def obs(*lead):
+        x = rng.random((*lead, dim)) if shape else rng.normal(size=(*lead, dim))
+        return x.astype(np.float32)
+
+    def logp(*lead):
+        return (np.log(1.0 / A) + 0.2 * rng.normal(size=lead)).astype(np.float32)
+
+    if kind == "fragment":  # IMPALA/APPO: one (T, B) fragment
+        T, B = rows
+        return {"obs": obs(T, B), "actions": rng.integers(0, A, (T, B)).astype(np.int32), "logp": logp(T, B),
+                "rewards": rng.normal(size=(T, B)).astype(np.float32),
+                "dones": (rng.random((T, B)) < 0.05).astype(np.float32), "last_obs": obs(B)}
+    out = {"obs": obs(rows), "actions": rng.integers(0, A, rows).astype(np.int32)}
+    if kind == "ppo":
+        out.update(logp=logp(rows), advantages=rng.normal(size=rows).astype(np.float32),
+                   returns=rng.normal(size=rows).astype(np.float32))
+    elif kind == "transitions":
+        out.update(rewards=rng.normal(size=rows).astype(np.float32), next_obs=obs(rows),
+                   dones=(rng.random(rows) < 0.05).astype(np.float32))
+    elif kind == "returns":
+        out.update(returns=(5 * rng.normal(size=rows)).astype(np.float32))
+    return out
+
+
+def _rl_learners():
+    """name -> (make(device, module_config), batch kind, rows, Adam steps
+    an update), each learner at its config's defaults and own batch."""
+    from ray_tpu_torch.rllib import appo, cql, dqn, impala, marwil, offline, ppo, sac
+
+    def make(learner_cls, config_cls):
+        return lambda dev, mc: learner_cls(config_cls(seed=RL_SEED).learners(0, device=dev), mc)
+
+    T, B = impala.IMPALAConfig.rollout_fragment_length, impala.IMPALAConfig.num_envs_per_runner
+    p = ppo.PPOConfig
+    return {
+        "PPO": (make(ppo.PPOLearner, ppo.PPOConfig), "ppo", p.minibatch_size, p.num_epochs),
+        "DQN": (make(dqn.DQNLearner, dqn.DQNConfig), "transitions", dqn.DQNConfig.train_batch_size, 1),
+        "IMPALA": (make(impala.IMPALALearner, impala.IMPALAConfig), "fragment", (T, B), 1),
+        "APPO": (make(appo.APPOLearner, appo.APPOConfig), "fragment", (T, B), 1),
+        "SAC": (make(sac.SACLearner, sac.SACConfig), "transitions", sac.SACConfig.train_batch_size, 1),
+        "BC": (make(offline.BCLearner, offline.BCConfig), "bc", offline.BCConfig.train_batch_size, 1),
+        "CQL": (make(cql.CQLLearner, cql.CQLConfig), "transitions", cql.CQLConfig.train_batch_size, 1),
+        "MARWIL": (make(marwil.MARWILLearner, marwil.MARWILConfig), "returns",
+                   marwil.MARWILConfig.train_batch_size, 1),
+    }
+
+
+
+def _update_ms(learner, batch, dev):
+    """Median ms of one update (its metrics read back: one host sync)."""
+    samples = []
+    for i in range(RL_TIME_WARMUP + RL_TIME_ITERS):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learner.update(batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        if i >= RL_TIME_WARMUP:
+            samples.append((time.perf_counter() - t0) * 1e3)
+    return _spread(samples)[0]
+
+
+def _rl_rel(got, want):
+    """‖got − want‖ / ‖want‖ over the tensors of two state dicts together."""
+    d = sum((got[k].double() - w.double()).square().sum().item() for k, w in want.items())
+    n = sum(w.double().square().sum().item() for w in want.values())
+    return math.sqrt(d / max(n, 1e-300))
+
+
+def _rl_tensor_rel(got, want):
+    """The largest tensor's ‖got − want‖ / ‖want‖."""
+    return max(_rl_rels(got, want).values())
+
+
+def _rl_rels(got, want):
+    """Each tensor's ‖got − want‖ / ‖want‖."""
+    return {n: _rl_rel({n: got[n]}, {n: want[n]}) for n in want}
+
+
+def _rl_held(card, cpu, f64, tol):
+    """The card's distance from the f64 run against each tensor's bound:
+    ``tol``, or RL_FLOOR_FACTOR times the CPU's own f32 distance for that
+    tensor, whichever is larger.  Returns (the largest card distance, the
+    largest CPU distance, the largest share of its bound and its tensor)."""
+    d_card, d_cpu = _rl_rels(card, f64), _rl_rels(cpu, f64)
+    share = {n: d_card[n] / max(tol, RL_FLOOR_FACTOR * d_cpu[n]) for n in f64}
+    worst = max(share, key=share.get)
+    return max(d_card.values()), max(d_cpu.values()), share[worst], worst
+
+
+def _rl_f64(learner):
+    """``learner`` computing in f64: its modules, its optimizer's state (made
+    at the first step) and its batches."""
+    learner.module.double()
+    if hasattr(learner, "target"):
+        learner.target.double()
+    to_tensors = learner._batch
+    learner._batch = lambda b: {k: v.double() if v.is_floating_point() else v for k, v in to_tensors(b).items()}
+    return learner
+
+
+def phase_rllib_learners(smi, device=None):
+    """(a): each learner's first gradients and its parameters after
+    RL_UPDATES updates on the card and on the CPU, each against the CPU's
+    f64 run of the same updates, then each update's ms on both (median of
+    RL_TIME_ITERS after RL_TIME_WARMUP), at the MLP and the Atari CNN."""
+    import numpy as np
+
+    from ray_tpu_torch.models import catalog
+    from ray_tpu_torch.rllib import core
+
+    device = device or DEVICE
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    _log("rllib", f"TF32 for the learners' check: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+                  f"cudnn {torch.backends.cudnn.allow_tf32} (were {flags[0]}, {flags[1]})")
+    shapes = {"MLP (64, 64) at CartPole's obs 4 / 2 actions": core.MLPModuleConfig(4, 2),
+              f"CNN at Atari's {RL_CNN_OBS} / {RL_CNN_ACTIONS} actions": catalog.get_module_config(
+                  RL_CNN_OBS, RL_CNN_ACTIONS)}
+    out = {}
+    try:
+        for label, mc in shapes.items():
+            n_params = sum(p.numel() for p in core.module_init(mc, None, "cpu").parameters())
+            _log("rllib", f"{label}: {n_params} parameters a module")
+            for name, (make, kind, rows, steps) in _rl_learners().items():
+                key = f"{'cnn' if hasattr(mc, 'obs_shape') else 'mlp'}/{name}"
+                rng = np.random.default_rng(RL_SEED)
+                batches = [_rl_batch(kind, mc, rows, rng) for _ in range(RL_UPDATES)]
+                learners = {"card": make(device, mc), "cpu": make("cpu", mc), "f64": _rl_f64(make("cpu", mc))}
+                w0 = {k: v.get_weights() for k, v in learners.items()}
+                _require(all(torch.equal(w0["card"][n], w0[k][n].float()) for k in w0 for n in w0["cpu"]),
+                         f"[rllib] {key}: the learners start apart")
+                g = {k: v.compute_grads(batches[0])[0] for k, v in learners.items()}
+                for b in batches:
+                    for learner in learners.values():
+                        learner.update(b)
+                w = {k: v.get_weights() for k, v in learners.items()}
+
+                gc, gcpu, gshare, gworst = _rl_held(g["card"], g["cpu"], g["f64"], RL_GRAD_TOL)
+                pc, pcpu, pshare, pworst = _rl_held(w["card"], w["cpu"], w["f64"], RL_PARAM_TOL)
+                r = {"grad_card_f64": gc, "grad_cpu_f64": gcpu, "grad_card_cpu": _rl_tensor_rel(g["card"], g["cpu"]),
+                     "grad_share": gshare, "param_card_f64": pc, "param_cpu_f64": pcpu,
+                     "param_card_cpu": _rl_tensor_rel(w["card"], w["cpu"]), "param_share": pshare}
+                ms = {"card": _update_ms(learners["card"], batches[0], device),
+                      "cpu": _update_ms(learners["cpu"], batches[0], "cpu")}
+                out[key] = {"card_ms": ms["card"], "cpu_ms": ms["cpu"], **r, "rows": rows, "steps": steps}
+                if device == "cuda" and name in RL_PROFILED:  # two more updates, after the checks
+                    out[key]["busy_ms"] = phase_profile(lambda: learners["card"].update(batches[0]),
+                                                        f"one [rllib] {key} update", ms["card"], top=4)
+                _log("rllib", f"{key}: {rows} rows, {steps} Adam step(s) an update: card {ms['card']:.3f} ms, "
+                              f"CPU {ms['cpu']:.3f} ms (card {ms['cpu'] / ms['card']:.2f}x as fast); largest "
+                              f"tensor distance from f64, first gradients: card {gc:.3g}, CPU {gcpu:.3g}, "
+                              f"card-CPU {r['grad_card_cpu']:.3g}, card/bound {gshare:.3g} at {gworst}; "
+                              f"parameters after {RL_UPDATES} updates: card {pc:.3g}, CPU {pcpu:.3g}, card-CPU "
+                              f"{r['param_card_cpu']:.3g}, card/bound {pshare:.3g} at {pworst}")
+                _require(gshare <= 1.0, f"[rllib] {key}: the card's first gradients from f64 at {gworst}: "
+                                        f"{gshare} of the bound")
+                _require(pshare <= 1.0, f"[rllib] {key}: the card's parameters from f64 after {RL_UPDATES} "
+                                        f"updates at {pworst}: {pshare} of the bound")
+                del learners
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    _log("rllib", f"{len(out)} learner updates held on the card against the CPU ({smi})")
+    return out
+
+
+class _CartPoleSpaces:
+    """What ``probe_env_spaces`` reads of CartPole-v1: obs (4,), 2 actions."""
+
+    observation_space = type("Box", (), {"shape": (4,)})
+    action_space = type("Discrete", (), {"n": 2})
+
+    def close(self):
+        pass
+
+
+class _SeededFragments:
+    """Stands in for an EnvRunnerGroup (no env steps: the card's machine
+    has no gymnasium): every ``sample`` returns the next CartPole-shaped
+    fragments drawn from one seed, the same for every algorithm made with
+    that seed."""
+
+    def __init__(self, env, module_config, num_runners=2, num_envs_per_runner=4, seed=0, **_):
+        import numpy as np
+
+        self.rng = np.random.default_rng(100 + seed)
+        self.n, self.B = num_runners, num_envs_per_runner
+        self.dim, self.A = module_config.obs_dim, module_config.num_actions
+
+    def sample(self, T, epsilon=None):
+        import numpy as np
+
+        r, B, A, D = self.rng, self.B, self.A, self.dim
+        return [{"obs": r.normal(size=(T, B, D)).astype(np.float32),
+                 "actions": r.integers(0, A, (T, B)).astype(np.int32),
+                 "rewards": r.normal(size=(T, B)).astype(np.float32),
+                 "dones": (r.random((T, B)) < 0.05).astype(np.float32),
+                 "logp": (np.log(1.0 / A) + 0.2 * r.normal(size=(T, B))).astype(np.float32),
+                 "values": r.normal(size=(T, B)).astype(np.float32),
+                 "last_values": r.normal(size=B).astype(np.float32),
+                 "final_obs": r.normal(size=(B, D)).astype(np.float32),
+                 "episode_returns": r.uniform(5, 50, size=2)} for _ in range(self.n)]
+
+    def sync_weights(self, _params):
+        pass
+
+    def stop(self):
+        pass
+
+
+def _rl_algorithms():
+    """name -> (module, config, learner of an algorithm), each at its
+    config's defaults but: PPO's minibatch is a whole iteration's rows (its
+    permutation is wall-clock seeded, so one minibatch an epoch keeps the
+    update the same on every device); DQN and SAC learn from their first
+    iteration, 8 updates an iteration, and DQN syncs its target every 8."""
+    from ray_tpu_torch.rllib import algorithm, dqn, ppo, sac
+
+    a = algorithm.AlgorithmConfig
+    per_frag = a.num_env_runners * a.num_envs_per_runner
+    replay_rows = per_frag * dqn.DQNConfig.rollout_fragment_length
+    replay = dict(learning_starts=replay_rows, updates_per_env_step=8 / replay_rows, seed=RL_SEED)
+    return {
+        "PPO": (ppo, ppo.PPOConfig(minibatch_size=per_frag * ppo.PPOConfig.rollout_fragment_length, seed=RL_SEED),
+                lambda algo: algo.learner_group.local),
+        "DQN": (dqn, dqn.DQNConfig(target_update_freq=8, **replay), lambda algo: algo.learner_group.local),
+        "SAC": (sac, sac.SACConfig(**replay), lambda algo: algo.learner),
+    }
+
+
+def _rl_learner_state(learner):
+    """The learner's weights, and DQN's target, as CPU state dicts."""
+    out = {f"module.{k}": v for k, v in learner.get_weights().items()}
+    if hasattr(learner, "target"):
+        out.update({f"target.{k}": v.detach().cpu() for k, v in learner.target.state_dict().items()})
+    return out
+
+
+def phase_rllib_algorithms(smi, device=None):
+    """(a'): RL_ALGO_ITERS training_steps of PPO, DQN and SAC on the card,
+    on the CPU and on the CPU in f64, from the same seeded fragments; the
+    card's parameters from f64 within RL_ALGO_TOL or RL_FLOOR_FACTOR of
+    the CPU's, tensor by tensor; then save/restore onto a fresh card
+    algorithm and one more iteration of both."""
+    import copy
+    import tempfile
+
+    device = device or DEVICE
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, (mod, config, learner_of) in _rl_algorithms().items():
+            runners, mod.EnvRunnerGroup = mod.EnvRunnerGroup, _SeededFragments
+            algos = {}
+            try:
+                for k, dev in (("card", device), ("cpu", "cpu"), ("f64", "cpu"), ("fresh", device)):
+                    algos[k] = config.environment(_CartPoleSpaces).learners(0, device=dev).build()
+                _rl_f64(learner_of(algos["f64"]))
+                w0 = {k: _rl_learner_state(learner_of(a)) for k, a in algos.items()}
+                _require(all(torch.equal(w0["card"][n], w0[k][n].float()) for k in w0 for n in w0["card"]),
+                         f"[rllib] {name}: the algorithms start apart")
+                ms = {}
+                for k in ("card", "cpu", "f64"):
+                    samples = []
+                    for _ in range(RL_ALGO_ITERS):
+                        t0 = time.perf_counter()
+                        res = algos[k].train()
+                        if k == "card" and device == "cuda":
+                            torch.cuda.synchronize()
+                        samples.append((time.perf_counter() - t0) * 1e3)
+                    ms[k] = samples
+                    _require(res["training_iteration"] == RL_ALGO_ITERS
+                             and all(math.isfinite(v) for v in res.values() if isinstance(v, float)),
+                             f"[rllib] {name} on {k}: {res}")
+                w = {k: _rl_learner_state(learner_of(algos[k])) for k in ("card", "cpu", "f64")}
+                pc, pcpu, pshare, pworst = _rl_held(w["card"], w["cpu"], w["f64"], RL_ALGO_TOL)
+                r = {"param_card_f64": pc, "param_cpu_f64": pcpu, "param_share": pshare,
+                     "param_card_cpu": _rl_tensor_rel(w["card"], w["cpu"]),
+                     # the least any tensor moved, of those that moved past f32's rounding (an
+                     # unused head's polyak average of equal values moves by rounding alone)
+                     "moved": min(m for m in _rl_rels(w0["f64"], w["f64"]).values()
+                                  if m > torch.finfo(torch.float32).eps)}
+                card = learner_of(algos["card"])
+                steps = getattr(card, "grad_steps", None)
+                # save/restore onto a fresh card algorithm, then one more iteration of both
+                path = tempfile.mkdtemp(prefix="rllib-ckpt-")
+                algos["card"].save(path)
+                algos["fresh"].restore(path)
+                fresh = learner_of(algos["fresh"])
+                got, want = fresh.get_weights(), card.get_weights()  # DQN's target is not in the checkpoint
+                same = all(torch.equal(got[n], want[n]) for n in want)
+                on_card = all(p.device.type == torch.device(device).type for p in fresh.module.parameters())
+                opt_same = True
+                if name == "PPO":  # the optimizer's state comes back, on the card
+                    a_st, b_st = card.optimizer.state_dict()["state"], fresh.optimizer.state_dict()["state"]
+                    opt_same = a_st.keys() == b_st.keys() and all(
+                        torch.equal(a_st[i][k].cpu(), b_st[i][k].cpu())
+                        and (k == "step" or b_st[i][k].device.type == torch.device(device).type)
+                        for i in a_st for k in a_st[i])
+                # the checkpoint holds no replay buffer (as the reference's): only
+                # PPO's next iteration can be held against the original's
+                algos["fresh"].env_runner_group.rng = copy.deepcopy(algos["card"].env_runner_group.rng)
+                after = {k: algos[k].train() for k in ("card", "fresh")}
+                if name == "PPO":
+                    r["restored_next"] = _rl_tensor_rel(_rl_learner_state(fresh), _rl_learner_state(card))
+                out[name] = {**r, "card_ms": ms["card"], "cpu_ms": ms["cpu"], "grad_steps": steps}
+                _log("rllib", f"{name}: {RL_ALGO_ITERS} training_steps from seeded fragments, per iteration card "
+                              f"{', '.join(f'{x:.1f}' for x in ms['card'])} ms, CPU "
+                              f"{', '.join(f'{x:.1f}' for x in ms['cpu'])} ms; largest tensor distance from "
+                              f"f64: card {pc:.3g}, CPU {pcpu:.3g}, card-CPU {r['param_card_cpu']:.3g}, "
+                              f"card/bound {pshare:.3g} at {pworst}; smallest tensor move {r['moved']:.3g}" + (f"; {steps} gradient steps" if steps is not None else "")
+                              + f"; save/restore onto a fresh card algorithm: weights bit for bit {same}, on the "
+                              f"card {on_card}" + (f", optimizer state bit for bit on the card {opt_same}"
+                                                   if name == "PPO" else "")
+                              + f"; iteration {after['fresh']['training_iteration']} after it"
+                              + (f", from the original's {r['restored_next']:.3g}" if name == "PPO" else ""))
+                _require(pshare <= 1.0, f"[rllib] {name}: the card's parameters from f64 after {RL_ALGO_ITERS} "
+                                        f"training_steps at {pworst}: {pshare} of the bound")
+                _require(r["moved"] > 10 * RL_FLOOR_FACTOR * max(RL_ALGO_TOL, pcpu),
+                         f"[rllib] {name}: a tensor moved {r['moved']}, near the bound")
+                _require(steps is None or steps == 8 * RL_ALGO_ITERS, f"[rllib] {name}: {steps} gradient steps")
+                _require(same and on_card and opt_same, f"[rllib] {name}: save/restore onto the card lost state")
+                _require(after["fresh"]["training_iteration"] == after["card"]["training_iteration"]
+                         == RL_ALGO_ITERS + 1, f"[rllib] {name}: iterations {after}")
+                _require(r.get("restored_next", 0.0) <= RL_ALGO_TOL,
+                         f"[rllib] {name}: the restored algorithm's next iteration {r.get('restored_next')} apart")
+            finally:
+                mod.EnvRunnerGroup = runners
+                for a in algos.values():
+                    a.stop()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return out
+
+
+def _rllib_refusal():
+    """(c): a LearnerGroup of 2 learners on "cuda", on a node of one card:
+    refused when the algorithm is made, before any env is probed or any
+    process started (no runtime runs: the node's cards are detected as the
+    raylet would)."""
+    from ray_tpu_torch.rllib import PPOConfig
+
+    try:
+        PPOConfig().environment("CartPole-v1").learners(2, device="cuda").build()
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    _log("rllib", f"PPOConfig().learners(2, device='cuda') on this node: {refused!r}")
+    _require(refused is not None and "wants 2 GPU(s)" in refused and "the node has 1" in refused,
+             f"[rllib] 2 card learners were not refused naming 2 and 1: {refused!r}")
+    return refused
+
+
+def phase_rllib(fa, smi):
+    """[rllib]: (a) the learners on the card against the CPU, then PPO,
+    DQN and SAC as algorithms with a save/restore onto the card, (c) the
+    refusal, (d) no flash launch.  (b), PPO on CartPole from a card
+    learner, needs gymnasium for its env runners, which the card's machine
+    lacks (the [probe] line)."""
+    t0 = time.perf_counter()
+    _flash_counts_zero(fa)
+    learners = phase_rllib_learners(smi)
+    algorithms = phase_rllib_algorithms(smi)
+    refused = _rllib_refusal()
+    counts = _counts(fa)
+    _require(not any(counts.values()), f"[rllib] launched flash kernels: {counts}")
+    _log("done", f"[rllib] {time.perf_counter() - t0:.1f} s; flash kernel launches on it: {counts}")
+    return {"learners": learners, "algorithms": algorithms, "refused": refused, "launches": counts}
 
 def phase_grad_flash_vs_dense(gpt2, model, tokens):
     """One step's gradients with flash and with dense attention from the
@@ -2927,6 +3381,8 @@ def main() -> int:
     smi = phase_device_and_build(_build)
     # For the Data library's port, whose blocks are Arrow tables.
     _log("probe", f"pyarrow importable: {importlib.util.find_spec('pyarrow') is not None}")
+    # For RLlib's env runners ([rllib] (b)).
+    _log("probe", f"gymnasium importable: {importlib.util.find_spec('gymnasium') is not None}")
     fwd_err = phase_check(fa)
     bwd_err = phase_check_bwd(fa)
     phase_tolerance_floor(fa)
@@ -2995,6 +3451,8 @@ def main() -> int:
     del tokens
     torch.cuda.empty_cache()
     llama_out = phase_llama(fa, smi)
+    # RLlib: the learners on the card, PPO on CartPole from a card learner.
+    rl_out = phase_rllib(fa, smi)
     # The multi-rank layouts, over gloo on the host.
     t0 = time.perf_counter()
     dryrun_lines = phase_dryrun()
@@ -3033,11 +3491,12 @@ def main() -> int:
         entry["moe_launches"] = moe["launches"][key]
         entry["spmd_launches"] = spmd_out["launches"][key]
         entry["pipeline_launches"] = pipe["launches"][key]
+        entry["rllib_launches"] = rl_out["launches"][key]
     print(json.dumps({"forward_ms": fwd, "forward_path_fwd_launches": fwd_launches,
                       "train_step_ms": train["step_ms"], "train_tokens_per_s": train["tokens_per_s"],
                       "head_backward_ms": head, "runtime": runtime, "fit": fit, "tune": tune_out, "moe": moe,
                       "vit": vit_out, "spmd": spmd_out, "pipeline": pipe, "pipeline_mpmd": mpmd,
-                      "dryrun": dryrun_lines, **llama_out,
+                      "rllib": rl_out, "dryrun": dryrun_lines, **llama_out,
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

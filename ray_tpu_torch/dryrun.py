@@ -16,9 +16,12 @@ reference's dry run covers:
 6. (n >= 4) tp-sharded Llama serving: a cached prefill and two row-wise
    decode steps;
 7. (n % 4 == 0) ViT over fsdp × tp;
+8. (n >= 2) RLlib: a PPO learner's update data parallel over a dp mesh of
+   every rank, the batch sharded, the parameters replicated and the
+   gradients averaged (the LearnerGroup's arithmetic in one program);
 9. the gang's cross-process sum.
 
-The reference's pass 8 (RLlib) has no port yet.  Where the reference fails on an involuntary rematerialisation in
+Where the reference fails on an involuntary rematerialisation in
 XLA's partitioner, each pass here checks that every parameter, and the
 optimizer's state of each, is sharded as the rule table says.
 
@@ -125,6 +128,54 @@ def _gpipe_pass(n: int, dev: str, seeded) -> str:
             raise AssertionError(f"non-finite pipeline loss {loss.item()}")
     dist.broadcast(loss, 0)
     return f"dryrun_multigpu pipeline OK: {n_stages} stages, loss={loss.item():.4f}"
+
+
+def rl_batch(n: int) -> dict:
+    """Pass 8's batch, the reference's: 4 rows a rank, zero observations,
+    actions and behavior logp, unit advantages and returns."""
+    import torch
+
+    B = 4 * n
+    return {"obs": torch.zeros((B, 4)), "actions": torch.zeros((B,), dtype=torch.long),
+            "logp": torch.zeros((B,)), "advantages": torch.ones((B,)), "returns": torch.ones((B,))}
+
+
+def rllib_dp_update(rank: int, n: int, dev: str, weights=None, batch=None):
+    """Pass 8 on ``rank`` of ``n``: the PPO loss (``PPOConfig(hidden=(32,
+    32))``, CartPole's shapes) of this rank's block of ``batch`` (default
+    :func:`rl_batch`) over a dp mesh of every rank, its gradients summed
+    over dp and divided by n, one Adam(3e-4) step (the reference's pass
+    takes no clip).  The module starts from ``weights`` (a state dict) or
+    from seed 11 on every rank.  Returns (the whole batch's loss, the
+    updated weights on the CPU), the same on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.catalog import get_module_config
+    from ray_tpu_torch.parallel import mesh as mesh_mod
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.rllib import core
+    from ray_tpu_torch.rllib.ppo import PPOConfig, ppo_loss
+
+    cfg = PPOConfig(hidden=(32, 32), learner_device=dev)
+    mc = get_module_config((4,), 2, {"hidden": (32, 32)})
+    module = core.module_init(mc, torch.Generator().manual_seed(11), dev)
+    if weights is not None:
+        module.load_state_dict(weights)
+    opt = spmd.adam(module.parameters(), 3e-4)
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshConfig(dp=n), device_type=dev)
+    local = {k: v.to_local() for k, v in spmd.shard_batch(mesh, batch or rl_batch(n)).items()}
+    loss, _ = ppo_loss(module, local, cfg)
+    loss.backward()
+    group = mesh.group("dp")
+    for p in module.parameters():
+        dist.all_reduce(p.grad, group=group)
+        p.grad /= n
+    opt.step()
+    loss = loss.detach().reshape(1)
+    dist.all_reduce(loss, group=group)
+    mesh_mod.set_current_mesh(None)
+    return loss.item() / n, core.state_dict_cpu(module)
 
 
 def _dryrun_rank(rank: int, n: int, device_type: str) -> List[str]:
@@ -238,6 +289,16 @@ def _dryrun_rank(rank: int, n: int, device_type: str) -> List[str]:
                            vit.loss_fn, batch)
         lines.append(f"dryrun_multigpu vit OK: mesh={mc_v.describe()}, loss={loss:.4f}")
     mesh_mod.set_current_mesh(None)
+
+    # 8: RLlib, the PPO learner's update dp-sharded over every rank; the
+    # parameters' sum of squares shows every replica took the same step.
+    if n >= 2:
+        loss, weights = rllib_dp_update(rank, n, dev)
+        sq = sum(float(w.double().square().sum()) for w in weights.values())
+        if not math.isfinite(loss):
+            raise AssertionError(f"non-finite PPO loss {loss}")
+        lines.append(f"dryrun_multigpu rllib OK: PPO learner update dp-sharded over {n} ranks, "
+                     f"loss={loss:.4f}, sum of squared params {sq:.6f}")
 
     # 9: the gang itself, a cross-process sum over every rank.
     x = torch.full((1,), rank + 1.0, device=dev)

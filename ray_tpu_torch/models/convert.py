@@ -122,3 +122,75 @@ def pp_params_to_jax(pp_params: nn.ModuleDict) -> dict:
     blocks = _stacked([blk for stage in stages for blk in stage])
     return {"stages": {k: v.reshape((len(stages), -1) + v.shape[1:]) for k, v in blocks.items()},
             "tail": {name: _np(p) for name, p in pp_params["tail"].named_parameters(recurse=False)}}
+
+
+# -- RLlib modules (rllib/core.py's MLP, models/catalog.py's CNN, SAC) -------
+#
+# The reference keeps an RL module as ``{"layers": [{"w", "b"}, ...], "pi":
+# {"w", "b"}, "vf": {"w", "b"}}`` (dense ``w`` as (din, dout)), a CNN adding
+# ``"conv": [{"w" (k, k, cin, cout) HWIO, "b"}, ...]``, and SAC's learner the
+# composite ``{"pi", "q1", "q2", "q1_t", "q2_t": module trees, "log_alpha":
+# scalar}``.  The port's modules keep those names as their state dict's
+# (``layers.0.w``, ``q1_t.pi.b``, ...); a convolution's kernel is OIHW.
+
+def rl_state_from_jax(np_params) -> dict:
+    """The reference's RL pytree as the port's state dict of f32 CPU
+    tensors (convolution kernels HWIO -> OIHW), bit for bit."""
+    out = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}.")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.")
+        else:
+            a = np.array(node, dtype=np.float32)  # a writable copy
+            if a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            out[prefix[:-1]] = torch.from_numpy(np.ascontiguousarray(a))
+
+    walk(np_params, "")
+    return out
+
+
+def rl_params_from_jax(np_params, module_config, device="cuda") -> nn.Module:
+    """The port's module for ``module_config`` (``MLPModuleConfig`` or
+    ``CNNModuleConfig``) on ``device`` holding the reference's pytree;
+    SAC's composite gives a ``rllib.sac.SACModules``."""
+    from ray_tpu_torch.rllib import core
+    from ray_tpu_torch.rllib.sac import SACModules
+
+    if "q1" in np_params:
+        pi, q1, q2 = (core.module_init(module_config, None, device) for _ in range(3))
+        module = SACModules(pi, q1, q2, 1.0)
+    else:
+        module = core.module_init(module_config, None, device)
+    module.load_state_dict(rl_state_from_jax(np_params))
+    return module
+
+
+def rl_params_to_jax(module: nn.Module) -> dict:
+    """The way back from :func:`rl_params_from_jax`: the module's state as
+    the reference's pytree of f32 numpy arrays (lists for ``layers`` and
+    ``conv``, kernels OIHW -> HWIO), bit for bit."""
+    tree: dict = {}
+    for name, t in module.state_dict().items():
+        a = _np(t)
+        if a.ndim == 4:
+            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = a
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)

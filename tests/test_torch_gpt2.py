@@ -28,6 +28,7 @@ import torch
 
 from ray_tpu.models import common as jax_common
 from ray_tpu.models import gpt2 as jax_gpt2
+from ray_tpu.parallel import mesh as jax_mesh
 from ray_tpu_torch.models import common, gpt2
 from ray_tpu_torch.models.convert import gpt2_params_from_jax
 
@@ -48,6 +49,14 @@ CASES = {
     ("flash", torch.float32, "d64"): ("logits", "loss_mask"),
     ("flash", torch.bfloat16, "d64"): ("logits", "loss"),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_jax_mesh():
+    """The JAX package keeps a process-wide current mesh, which its own
+    tests leave set in the worker that ran them; its flash attention then
+    shards over that mesh.  The references here are single-device."""
+    jax_mesh.set_current_mesh(None)
 
 
 def _configs(dtype, widths="", **kw):

@@ -146,6 +146,21 @@ def test_tune_import_loads_no_torch_or_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_rllib_import_loads_no_jax_or_reference():
+    """The RLlib port and its model catalog load neither JAX nor any module
+    of the JAX package (the catalog registers the CNN family into the
+    port's ``rllib.core``)."""
+    code = ("import sys, ray_tpu_torch.rllib, ray_tpu_torch.models.catalog; "
+            "from ray_tpu_torch.rllib import core; from ray_tpu_torch.models import catalog; "
+            "assert core.MODULE_FAMILIES[catalog.CNNModuleConfig] is catalog.cnn_init; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'ray_tpu')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"gpt2.py", "llama.py", "llm.py", "flash_attention.py", "chip_smoke.py",
@@ -164,6 +179,11 @@ def test_port_files_found():
     assert pipeline == {f"ray_tpu_torch/train/pipeline/{n}.py" for n in
                         ("__init__", "schedule", "partition", "stage", "driver")}
     assert {"pp.py", "pipeline.py"} <= names
+    rllib = {p.relative_to(REPO).as_posix() for p in PORT_FILES if p.parent.name == "rllib"}
+    assert rllib == {f"ray_tpu_torch/rllib/{n}.py" for n in
+                     ("__init__", "core", "connectors", "learner_group", "algorithm", "env_runner", "ppo",
+                      "dqn", "impala", "appo", "sac", "multi_agent", "offline", "cql", "marwil")}
+    assert (REPO / "ray_tpu_torch" / "models" / "catalog.py") in PORT_FILES
     serving = {"controller.py", "handle.py", "proxy.py", "replica.py", "weights.py",
                "admission.py", "scheduler.py", "collective.py", "rpc_backend.py",
                "quantize.py", "quant.py"}

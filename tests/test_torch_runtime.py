@@ -31,6 +31,7 @@ from ray_tpu.common import config as ref_config
 from ray_tpu.common import resources as ref_resources
 from ray_tpu.common import serialization as ref_ser
 from ray_tpu.models import gpt2 as jax_gpt2
+from ray_tpu.parallel import mesh as jax_mesh
 from ray_tpu_torch.common import config as port_config
 from ray_tpu_torch.common.constants import session_root
 from ray_tpu_torch.common import resources as port_resources
@@ -41,6 +42,14 @@ from ray_tpu_torch.models.convert import gpt2_params_from_jax
 
 # Port-only env that would change what a cluster sees: cleared around each.
 _GPU_ENV = ("CUDA_VISIBLE_DEVICES", "RT_GPU_VISIBLE_DEVICES", "RT_GPU_COUNT_OVERRIDE")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_jax_mesh():
+    """The JAX package keeps a process-wide current mesh, which its own
+    tests leave set in the worker that ran them; its flash attention then
+    shards over that mesh.  The references here are single-device."""
+    jax_mesh.set_current_mesh(None)
 
 
 def _inherited_env():

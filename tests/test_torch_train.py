@@ -38,6 +38,7 @@ import pytest
 import torch
 
 from ray_tpu.models import gpt2 as jax_gpt2
+from ray_tpu.parallel import mesh as jax_mesh
 from ray_tpu_torch.models import gpt2
 from ray_tpu_torch.models.common import matmul_f32
 from ray_tpu_torch.models.convert import gpt2_params_from_jax
@@ -60,6 +61,14 @@ CASES = {
     "flash-d64-f32": ("flash", torch.float32, 0, True, "d64"),
     "flash-d64-bf16": ("flash", torch.bfloat16, 0, False, "d64"),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_jax_mesh():
+    """The JAX package keeps a process-wide current mesh, which its own
+    tests leave set in the worker that ran them; its flash attention then
+    shards over that mesh.  The references here are single-device."""
+    jax_mesh.set_current_mesh(None)
 
 
 def _draw_params(widths=""):

@@ -44,6 +44,7 @@ import torch
 import ray_tpu_torch as rt
 from ray_tpu import tune as ref_tune
 from ray_tpu.models import gpt2 as jax_gpt2
+from ray_tpu.parallel import mesh as jax_mesh
 from ray_tpu.tune import schedulers as ref_schedulers
 from ray_tpu_torch import train, tune
 from ray_tpu_torch.models import gpt2
@@ -84,6 +85,14 @@ def test_generate_variants_matches_reference(space):
 TPE_SPACE = lambda t: {"lr": t.loguniform(1e-4, 1e-1), "x": t.uniform(-2.0, 2.0),  # noqa: E731
                        "n": t.randint(1, 9), "act": t.choice(["relu", "gelu", "tanh"]),
                        "wd": t.grid_search([0.0, 0.1]), "lr2": t.sample_from(lambda s: s["lr"] * 2)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_jax_mesh():
+    """The JAX package keeps a process-wide current mesh, which its own
+    tests leave set in the worker that ran them; its flash attention then
+    shards over that mesh.  The references here are single-device."""
+    jax_mesh.set_current_mesh(None)
 
 
 def _objective(cfg):
