@@ -236,13 +236,61 @@ it; the card's machine has not had it, so no env steps there):
      PPOConfig().learners(2, device="cuda") must be refused on this
      one-card node, naming 2 cards wanted and 1 there.
      The flash kernels' counts are reset before and must read 0 after.
+Phase 22 runs after phase 16 and before phase 14, phase 23 after phase 21
+and before phase 18:
+  22. [ingest]: the Data library feeds a training gang on the card.  The
+     driver writes 104 seeded rows (1025 int32 GPT-2 tokens and an int64
+     row_id each) to 4 parquet files in the session's directory with
+     pyarrow; data.read_parquet(dir).map_batches splits each row into
+     int64 inputs and targets of 1024.  TorchTrainer(datasets={"train":
+     ds}, ScalingConfig(num_workers=1, use_gpu=True)) runs phase 6's
+     training (GPT-2-124M from phase 6's seed, B=8, S=1024, bf16, flash,
+     AdamW) for the 13 batches of 8, which the worker reads with
+     train.get_dataset_shard("train").iter_device_batches(batch_size=8)
+     (its default device, the card: pinned host copies on a side stream,
+     double-buffered).  Each step reports its loss, the batch's row_ids,
+     the ms the loop waited for the batch, step ms and each kernel's
+     launches (reset before the step, read after).  The row_ids must
+     cover the 104 rows once; the driver replays phase 6's in-process step
+     over the same batches, in the reported order, read from the files
+     with pyarrow, and every loss must equal the replay's bit for bit;
+     each kernel must launch 12 times a step; the worker must see one card
+     and load no JAX; after shutdown() no process of the driver may
+     remain.  Prints the wait for a batch (median, max) beside the step's
+     ms and their ratio, the time to the first step and its parts, and the
+     shard's Data execution stats;
+  23. [podracer]: the Podracer plane's learner actor on the card.  (a) A
+     PodracerLearnerActor leasing num_gpus=1 builds IMPALA's learner on
+     the card, twice: at the default MLP (CartPole's shapes) and at the
+     catalog's CNN at (84, 84, 4) with 6 actions.  The driver ingests a
+     seeded sequence of 9 fragments (the config's rollout length, 4 envs;
+     the metas and weight pushes of tests/test_torch_podracer.py: drops
+     stale at ingest and while queued, suspect fragments, 3 updates) into
+     it by shm ref, and into an in-process CPU learner and an f64 one
+     (TF32 off): the card's stats() must equal the CPU's after every step,
+     its parameters after the last update be held to the f64 run by
+     [rllib]'s per-tensor floors (RL_PARAM_TOL), and its checkpoint hooks
+     round-trip onto a fresh card actor bit for bit.  (b) PodracerRunner
+     runs 2 CPU runner actors (the port's EnvRunnerActor with its env
+     stepping replaced by seeded frames) and the card learner at the CNN,
+     32-step fragments of 4 envs (14.45 MB each, by shm ref; the driver
+     never holds a payload), 2 fragments a batch, K = 4, a fan-out every
+     update, for 20 updates or more, once with the fp32 wire and once with
+     bf16: the largest trained lag must be at most K, every fragment sent
+     be trained, dropped stale, dropped for overflow, queued or lost, and
+     after drain_in_flight and a last fan-out every runner's weights equal
+     the learner's bit for bit; the learner must see one card, load no JAX
+     and launch no flash kernel.  Prints fragments/s, env steps trained/s,
+     updates/s, GB/s of fragments into the learner, fan-out ms and one
+     profiled update's device-busy ms and idle share.
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches on the training path (the forward kernel's in the
 runtime's GPU worker, "runtime_launches"; each kernel's in the trainer's
 worker, "fit_launches", in the Tune trials' processes, "tune_launches",
 in [moe], "moe_launches", through the mesh path, "spmd_launches",
-through the pipeline's stage programs, "pipeline_launches", and in
-[rllib], "rllib_launches"),
+through the pipeline's stage programs, "pipeline_launches", in
+[rllib], "rllib_launches", in the [ingest] worker, "ingest_launches", and
+in [podracer], "podracer_launches"),
 error against its plain version,
 time, the plain version's time, the library call's time and the card's
 bound; the last line is {"ok": true, "device": {...}}.  With no CUDA device
@@ -789,16 +837,7 @@ def phase_profile(run, label, unprofiled_ms, top=6, expect=None):
     for name, n in (expect or {}).items():
         got = sum(name in e.name for e in kernels)
         _require(got == n, f"{label}: {got} launches of {name} profiled, expected {n}")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s_, e_ in spans[1:]:
-        if s_ > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s_, e_
-        else:
-            cur_e = max(cur_e, e_)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+    busy, window = _busy_window(kernels)
     by_name = {}
     for e in kernels:
         t, n = by_name.get(e.name, (0.0, 0))
@@ -1543,6 +1582,387 @@ def phase_rllib(fa, smi):
     _require(not any(counts.values()), f"[rllib] launched flash kernels: {counts}")
     _log("done", f"[rllib] {time.perf_counter() - t0:.1f} s; flash kernel launches on it: {counts}")
     return {"learners": learners, "algorithms": algorithms, "refused": refused, "launches": counts}
+
+# [podracer]: the Podracer plane's learner actor on the card.  (a) holds it
+# against an in-process CPU learner and an f64 one on a seeded fragment
+# sequence shaped like tests/test_torch_podracer.py's (K = 1, 2 fragments a
+# batch: drops stale at ingest and while queued, suspect fragments); (b)
+# runs it under PodracerRunner, fed by two CPU runner actors at the CNN.
+POD_K, POD_BATCH_FRAGMENTS = 1, 2
+POD_SEQUENCE = [(0, 0, False), (1, 0, True), (2, 1, False), "bump", "bump", (3, 1, False),
+                (4, 3, False), (5, 2, True), (6, 0, False), (7, 4, False), (8, 3, False)]
+POD_SEQUENCE_UPDATES = 3
+POD_FLEET_UPDATES, POD_FLEET_K, POD_FLEET_T, POD_FLEET_ENVS, POD_FLEET_RUNNERS = 20, 4, 32, 4, 2
+POD_FANOUT_REPS = 5
+
+
+def _pod_factory(mc, device):
+    from ray_tpu_torch.rllib import impala
+
+    return functools.partial(impala.IMPALALearner, impala.IMPALAConfig(seed=RL_SEED).learners(0, device=device), mc)
+
+
+def _pod_fragment(mc, T, B, rng):
+    """A seeded IMPALA fragment for ``mc`` as an env runner returns it
+    (observations in the module's shape)."""
+    b = _rl_batch("fragment", mc, (T, B), rng)
+    shape = tuple(getattr(mc, "obs_shape", None) or (mc.obs_dim,))
+    return {"obs": b["obs"].reshape(T, B, *shape), "actions": b["actions"], "logp": b["logp"],
+            "rewards": b["rewards"], "dones": b["dones"], "final_obs": b["last_obs"].reshape(B, *shape),
+            "episode_returns": rng.uniform(5, 50, size=1)}
+
+
+def _pod_meta(seq, version, suspect, env_steps):
+    return {"runner_index": seq % 2, "seq": seq, "policy_version": version, "env_steps": env_steps,
+            "suspect": suspect, "incarnation": 0}
+
+
+def _tf32_off(_inst):
+    # imported here: a function that names torch.backends.cudnn through
+    # the global torch cannot be pickled (its module object is not a module)
+    import torch.backends.cuda as backends_cuda
+    import torch.backends.cudnn as backends_cudnn
+
+    backends_cuda.matmul.allow_tf32 = backends_cudnn.allow_tf32 = False
+    return True
+
+
+def _learner_facts(inst):
+    """The learner actor's process: argv, foreign modules, its cards, its
+    parameters' device and the flash kernels' counts there."""
+    fa = sys.modules.get("ray_tpu_torch.ops.flash_attention")
+    return {**_worker_facts(), "device_count": torch.cuda.device_count(),
+            "param_device": str(next(inst.learner.module.parameters()).device),
+            "flash_launches": _counts(fa) if fa is not None else {"fwd": 0, "dq": 0, "dkv": 0}}
+
+
+def _busy_window(kernels):
+    """(device-busy us, window us) of profiled kernels: their merged spans
+    and the span from the first start to the last end."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    return busy + cur_e - cur_s, spans[-1][1] - spans[0][0]
+
+
+def _profiled_update(inst, batch):
+    """In the learner actor: one update's ms (median of 3, synchronised),
+    then one update under torch.profiler: device-busy ms and idle share."""
+    samples = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inst.learner.update(batch)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    kernels = _device_events(lambda: inst.learner.update(batch))
+    if not kernels:
+        return {"update_ms": sorted(samples)[1], "busy_ms": None}
+    busy, window = _busy_window(kernels)
+    return {"update_ms": sorted(samples)[1], "busy_ms": busy / 1e3, "window_ms": window / 1e3,
+            "kernels": len(kernels)}
+
+
+def _pod_actor(rt, mc, device):
+    from ray_tpu_torch.rllib.impala import impala_batch_from_fragments
+    from ray_tpu_torch.rllib.podracer import PodracerLearnerActor
+
+    lease = {"num_cpus": 1, "num_gpus": 1} if device == "cuda" else {"num_cpus": 1}
+    return PodracerLearnerActor.options(**lease).remote(
+        _pod_factory(mc, device), impala_batch_from_fragments, POD_BATCH_FRAGMENTS, POD_K, True)
+
+
+def _pod_state_equal(a, b):
+    """Two checkpoints of the learner actor equal bit for bit."""
+    pa, pb = a["params"], b["params"]
+    sa, sb = a["opt_state"]["state"], b["opt_state"]["state"]
+    return (pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)
+            and sa.keys() == sb.keys() and all(sa[i].keys() == sb[i].keys() for i in sa)
+            and all(torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i])
+            and {k: v for k, v in a.items() if k not in ("params", "opt_state")}
+            == {k: v for k, v in b.items() if k not in ("params", "opt_state")})
+
+
+def phase_podracer_parity(rt, smi, device):
+    """(a): the card learner actor's stats after every step of the
+    sequence equal to the in-process CPU learner's, its parameters after
+    the last update held to the f64 run by [rllib]'s per-tensor floors,
+    and its checkpoint hooks round-tripped onto a fresh card actor."""
+    import numpy as np
+
+    from ray_tpu_torch.models import catalog
+    from ray_tpu_torch.rllib import core, impala
+    from ray_tpu_torch.rllib.podracer import PodracerLearnerActor
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    shapes = {"mlp": core.MLPModuleConfig(4, 2), "cnn": catalog.get_module_config(RL_CNN_OBS, RL_CNN_ACTIONS)}
+    T, B = impala.IMPALAConfig.rollout_fragment_length, impala.IMPALAConfig.num_envs_per_runner
+    out = {}
+    try:
+        for key, mc in shapes.items():
+            card = _pod_actor(rt, mc, device)
+            rt.get(card._apply(_tf32_off), timeout=300)
+            threads = torch.get_num_threads()
+            try:  # in process: the learner actor's class sets one intra-op thread
+                cpu = PodracerLearnerActor._cls(_pod_factory(mc, "cpu"), impala.impala_batch_from_fragments,
+                                                POD_BATCH_FRAGMENTS, POD_K, True)
+                f64 = PodracerLearnerActor._cls(_pod_factory(mc, "cpu"), impala.impala_batch_from_fragments,
+                                                POD_BATCH_FRAGMENTS, POD_K, True)
+            finally:
+                torch.set_num_threads(threads)
+            _rl_f64(f64.learner)
+            w0 = {"card": rt.get(card.get_weights.remote(), timeout=60), "cpu": cpu.get_weights(),
+                  "f64": f64.get_weights()}
+            _require(all(torch.equal(w0["card"][n], w0[k][n].float()) for k in w0 for n in w0["cpu"]),
+                     f"[podracer] {key}: the learners start apart")
+            rng = np.random.default_rng(RL_SEED)
+            card_ms, updates = [], 0
+            for step in POD_SEQUENCE:
+                if step == "bump":
+                    for learner in (cpu, f64):
+                        learner.set_weights(learner.get_weights(), True)
+                    rt.get(card.set_weights.remote(rt.get(card.get_weights.remote(), timeout=60), True), timeout=60)
+                else:
+                    frag, m = _pod_fragment(mc, T, B, rng), _pod_meta(*step, T * B)
+                    ref = rt.put(frag)
+                    t0 = time.perf_counter()
+                    got = rt.get(card.ingest.remote(ref, dict(m)), timeout=300)
+                    card_ms.append((time.perf_counter() - t0) * 1e3)
+                    want = cpu.ingest(frag, dict(m))
+                    f64.ingest(frag, dict(m))
+                    _require((got["train"] is None) == (want["train"] is None),
+                             f"[podracer] {key}: step {step} trained on one device only")
+                    updates += got["train"] is not None
+                stats = rt.get(card.stats.remote(), timeout=60)
+                _require(stats == cpu.stats() == f64.stats(),
+                         f"[podracer] {key}: stats after {step}: card {stats}, CPU {cpu.stats()}")
+            _require(updates == POD_SEQUENCE_UPDATES and stats["dropped_stale"] == 3
+                     and stats["max_trained_lag"] <= POD_K, f"[podracer] {key}: {updates} updates, {stats}")
+            w = {"card": rt.get(card.get_weights.remote(), timeout=60), "cpu": cpu.get_weights(),
+                 "f64": f64.get_weights()}
+            pc, pcpu, pshare, pworst = _rl_held(w["card"], w["cpu"], w["f64"], RL_PARAM_TOL)
+            moved = min(_rl_rels(w0["f64"], w["f64"]).values())
+            # the checkpoint hooks onto a fresh card actor (the card holds one lease at a time)
+            snap = rt.get(card._apply(lambda inst: inst.__rt_checkpoint__()), timeout=60)
+            rt.kill(card)
+            fresh = _pod_actor(rt, mc, device)
+            rt.get(fresh._apply(lambda inst, s: inst.__rt_restore__(s), snap), timeout=300)
+            back = rt.get(fresh._apply(lambda inst: inst.__rt_checkpoint__()), timeout=60)
+            facts = rt.get(fresh._apply(_learner_facts), timeout=60)
+            rt.kill(fresh)
+            same = _pod_state_equal(snap, back)
+            out[key] = {"param_card_f64": pc, "param_cpu_f64": pcpu, "param_share": pshare,
+                        "param_card_cpu": _rl_tensor_rel(w["card"], w["cpu"]), "moved": moved,
+                        "ingest_ms": card_ms, "restored_bitwise": same, "stats": stats}
+            _log("podracer", f"{key}: {len(card_ms)} fragments of ({T}, {B}) through the card learner actor "
+                             f"({updates} updates; ingest round trips {', '.join(f'{x:.1f}' for x in card_ms)} ms); "
+                             f"stats equal to the CPU's after every step: {stats}; largest tensor distance from "
+                             f"f64: card {pc:.3g}, CPU {pcpu:.3g}, card-CPU {out[key]['param_card_cpu']:.3g}, "
+                             f"card/bound {pshare:.3g} at {pworst}; smallest tensor move {moved:.3g}; checkpoint "
+                             f"hooks onto a fresh actor on {facts['param_device']}: bit for bit {same}")
+            _require(pshare <= 1.0, f"[podracer] {key}: the card's parameters from f64 at {pworst}: "
+                                    f"{pshare} of the bound")
+            _require(moved > RL_PARAM_TOL, f"[podracer] {key}: a tensor moved only {moved}")
+            _require(same and facts["param_device"].startswith(device),
+                     f"[podracer] {key}: the checkpoint did not round-trip onto the card")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    return out
+
+
+class _SeededFrames:
+    """Stands in for the gymnasium vector env of an env runner (the card's
+    machine has no gymnasium, and CartPole has no frames): each reset and
+    step returns seeded (num_envs, H, W, C) frames in [0, 1), rewards from
+    a unit normal and dones at 5%."""
+
+    def __init__(self, num_envs, seed, obs_shape):
+        import numpy as np
+
+        self.rng, self.n, self.shape = np.random.default_rng(seed), num_envs, tuple(obs_shape)
+
+    def reset(self, seed=None):
+        return self.rng.random((self.n, *self.shape), dtype="float32"), {}
+
+    def step(self, action):
+        import numpy as np
+
+        obs = self.rng.random((self.n, *self.shape), dtype="float32")
+        rewards = self.rng.normal(size=self.n).astype(np.float32)
+        return obs, rewards, self.rng.random(self.n) < 0.05, np.zeros(self.n, bool), {}
+
+
+def _seeded_frame_runner(rt):
+    """The port's EnvRunnerActor with only its env stepping replaced by
+    _SeededFrames: sampling, the CPU module's inference, the fragment put
+    and the podracer methods are the runner's own."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import core, env_runner
+
+    class SeededFrameRunner(env_runner.EnvRunnerActor._cls):
+        def __init__(self, env_fn, module_config, num_envs, seed, env_to_module_fn=None):
+            # EnvRunnerActor.__init__ with _SeededFrames for the gym envs
+            torch.set_num_threads(1)
+            self._envs = _SeededFrames(num_envs, seed, module_config.obs_shape)
+            self._num_envs = num_envs
+            self._config = module_config
+            self._module = core.module_init(module_config, torch.Generator().manual_seed(seed), "cpu")
+            self._gen = torch.Generator().manual_seed(seed + 10_000)
+            self._env_to_module = None
+            self._obs, _ = self._envs.reset(seed=seed)
+            self._prev_done = np.zeros(num_envs, bool)
+            self._proc = self._process(self._obs)
+            self._ep_return = np.zeros(num_envs, np.float64)
+            self._completed = []
+            self._policy_version = 0
+            self._frag_seq = 0
+
+    return rt.remote(SeededFrameRunner)
+
+
+def phase_podracer_fleet(rt, smi, device):
+    """(b): PodracerRunner with POD_FLEET_RUNNERS CPU runner actors and the
+    card learner at the CNN, POD_FLEET_UPDATES updates or more, under the
+    fp32 and the bf16 wire."""
+    import numpy as np
+
+    from ray_tpu_torch.models import catalog
+    from ray_tpu_torch.rllib import env_runner
+    from ray_tpu_torch.rllib.impala import impala_batch_from_fragments
+
+    mc = catalog.get_module_config(RL_CNN_OBS, RL_CNN_ACTIONS)
+    gym = importlib.util.find_spec("gymnasium") is not None
+    rng = np.random.default_rng(RL_SEED + 1)
+    sample = [_pod_fragment(mc, POD_FLEET_T, POD_FLEET_ENVS, rng) for _ in range(2)]
+    frag_bytes = sum(v.nbytes for v in sample[0].values())
+    profile_batch = impala_batch_from_fragments(sample)
+    runner_cls, env_runner.EnvRunnerActor = env_runner.EnvRunnerActor, _seeded_frame_runner(rt)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        group = env_runner.EnvRunnerGroup(None, mc, num_runners=POD_FLEET_RUNNERS,
+                                          num_envs_per_runner=POD_FLEET_ENVS, seed=RL_SEED)
+        try:
+            rt.get([r.ping.remote() for r in group.runners], timeout=300)
+            _log("podracer", f"{POD_FLEET_RUNNERS} CPU runner actors up in {time.perf_counter() - t0:.3f} s "
+                             f"(seeded frames in place of env steps; gymnasium importable: {gym}); a fragment "
+                             f"({POD_FLEET_T}, {POD_FLEET_ENVS}) at {RL_CNN_OBS}: {frag_bytes / 1e6:.3f} MB")
+            for wire in (None, "bf16"):
+                out[wire or "fp32"] = _pod_fleet_run(rt, group, mc, wire, device, frag_bytes, profile_batch, smi)
+        finally:
+            group.stop()
+    finally:
+        env_runner.EnvRunnerActor = runner_cls
+    return out
+
+
+def _pod_fleet_run(rt, group, mc, wire, device, frag_bytes, profile_batch, smi):
+    from ray_tpu_torch.rllib.impala import impala_batch_from_fragments
+    from ray_tpu_torch.rllib.podracer import PodracerConfig, PodracerRunner
+
+    label = wire or "fp32"
+    t0 = time.perf_counter()
+    pr = PodracerRunner(group, _pod_factory(mc, device), impala_batch_from_fragments, PodracerConfig(
+        rollout_fragment_length=POD_FLEET_T, batch_fragments=2, max_policy_lag=POD_FLEET_K, weight_sync_period=1,
+        weight_wire_dtype=wire, learner_device=device))
+    try:
+        start_s = time.perf_counter() - t0
+        facts = rt.get(pr.learner._apply(_learner_facts), timeout=60)
+        updates = forwarded = sampled_steps = 0
+        gen_ms = []
+        t0 = time.perf_counter()
+        while updates < POD_FLEET_UPDATES:
+            res = pr.run(min_updates=1)
+            updates += res["updates"]
+            forwarded += res["fragments"]
+            sampled_steps += res["env_steps_sampled"]
+            if "weight_broadcast_ms" in res:
+                gen_ms.append(res["weight_broadcast_ms"])
+        run_s = time.perf_counter() - t0
+        in_flight = len(pr._sample_refs)
+        pr.drain_in_flight()
+        stats = pr.learner_stats()
+        lost = pr._fragments_lost
+        fan_ms = [pr.broadcast_weights(wire) for _ in range(POD_FANOUT_REPS)]
+        w = pr.get_weights()
+        runner_w = [rt.get(r.get_weights.remote(), timeout=60) for r in group.runners]
+        equal = all(torch.equal(rw[k], w[k]) for rw in runner_w for k in w) and all(rw.keys() == w.keys()
+                                                                                    for rw in runner_w)
+        after = rt.get(pr.learner._apply(_learner_facts), timeout=60)
+        prof = rt.get(pr.learner._apply(_profiled_update, profile_batch), timeout=300) if device == "cuda" else None
+    finally:
+        pr.stop()
+    settled = (stats["trained_fragments"] + stats["dropped_stale"] + stats["dropped_overflow"]
+               + stats["queue_depth"] + lost)
+    r = {"updates": updates, "run_s": run_s, "learner_start_s": start_s, "fragments": forwarded,
+         "sampled": forwarded + in_flight, "discarded_at_drain": in_flight, "lost": lost, "stats": stats,
+         "fragments_per_s": forwarded / run_s, "env_steps_trained_per_s": stats["env_steps_trained"] / run_s,
+         "updates_per_s": updates / run_s, "fragment_gb_per_s": forwarded * frag_bytes / run_s / 1e9,
+         "generation_ms_median": _spread(gen_ms)[0] if gen_ms else None,
+         "fanout_ms_median": _spread(fan_ms)[0], "runners_bitwise": equal, "profile": prof}
+    _log("podracer", f"[{label} wire] {smi}: learner actor up in {start_s:.3f} s on {facts['param_device']} "
+                     f"(CUDA_VISIBLE_DEVICES={facts['visible']!r}, {facts['device_count']} card(s), no JAX); "
+                     f"{updates} updates in {run_s:.3f} s: {r['fragments_per_s']:.2f} fragments/s, "
+                     f"{r['env_steps_trained_per_s']:.1f} env steps trained/s, {r['updates_per_s']:.2f} updates/s, "
+                     f"{r['fragment_gb_per_s']:.4f} GB/s of fragments into the learner (by shm ref)")
+    _log("podracer", f"[{label} wire] fragments: sampled {r['sampled']} = trained {stats['trained_fragments']} + "
+                     f"dropped stale {stats['dropped_stale']} + dropped overflow {stats['dropped_overflow']} + "
+                     f"queued {stats['queue_depth']} + lost {lost} + sampled but not sent by the drain "
+                     f"{in_flight}; staleness {stats['staleness_hist']}, largest trained lag "
+                     f"{stats['max_trained_lag']} (K = {POD_FLEET_K})")
+    _log("podracer", f"[{label} wire] fan-out: a generation while sampling, median {r['generation_ms_median']} ms "
+                     f"over {len(gen_ms)} run() calls; to an idle fleet {', '.join(f'{x:.2f}' for x in fan_ms)} "
+                     f"ms (median {r['fanout_ms_median']:.3f}); after the drain and a last fan-out every "
+                     f"runner's weights equal the learner's bit for bit: {equal}; flash launches in the learner "
+                     f"{after['flash_launches']}")
+    if prof is not None:
+        idle = None if prof["busy_ms"] is None else 1 - prof["busy_ms"] / prof["update_ms"]
+        _log("podracer", f"[{label} wire] one update of 2 fragments on the card: {prof['update_ms']:.3f} ms; "
+                         f"profiled: device busy {prof['busy_ms']} ms in {prof.get('kernels')} kernels, idle share "
+                         f"{idle} of the unprofiled update")
+        r["idle_share"] = idle
+    _require(updates >= POD_FLEET_UPDATES, f"[podracer] {label}: {updates} updates")
+    _require(stats["max_trained_lag"] <= POD_FLEET_K, f"[podracer] {label}: trained lag {stats['max_trained_lag']}")
+    _require(forwarded == settled, f"[podracer] {label}: {forwarded} fragments sent, {settled} accounted for")
+    _require(equal, f"[podracer] {label}: a runner's weights differ from the learner's")
+    for f in (facts, after):
+        _check_worker(f, f"[podracer] {label} learner")
+        _require(f["param_device"].startswith(device), f"[podracer] {label}: learner on {f['param_device']}")
+        if device == "cuda":
+            _require(f["visible"] == "0" and f["device_count"] == 1,
+                     f"[podracer] the learner sees CUDA_VISIBLE_DEVICES={f['visible']!r}, {f['device_count']} card(s)")
+    _require(not any(after["flash_launches"].values()), f"[podracer] flash launches in the learner: "
+                                                         f"{after['flash_launches']}")
+    return r
+
+
+def phase_podracer(fa, smi, device=None):
+    """[podracer]: (a) parity of the card learner actor, (b) the fleet; the
+    driver's flash counts read 0 over both."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api as rt_api
+
+    device = device or DEVICE
+    t0 = time.perf_counter()
+    _flash_counts_zero(fa)
+    rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+    try:
+        parity = phase_podracer_parity(rt, smi, device)
+        fleet = phase_podracer_fleet(rt, smi, device)
+    finally:
+        _shutdown_checked(rt, rt_api, "podracer")
+    counts = _counts(fa)
+    _require(not any(counts.values()), f"[podracer] launched flash kernels: {counts}")
+    _log("done", f"[podracer] {time.perf_counter() - t0:.1f} s; flash kernel launches on it: {counts}")
+    return {"parity": parity, "fleet": fleet, "launches": counts}
+
 
 def phase_grad_flash_vs_dense(gpt2, model, tokens):
     """One step's gradients with flash and with dense attention from the
@@ -2758,6 +3178,212 @@ def _tune_trainer_checks(grid, best, restored, fit_s, cfg, train_out, smi):
     return {"trials": out, "launches": launches, "fit_s": fit_s}
 
 
+# [ingest]: the Data library feeds [fit]'s training on the card.  104
+# seeded rows of 1025 GPT-2 tokens in 4 parquet files: 13 batches of 8.
+INGEST_ROWS, INGEST_FILES, INGEST_BATCH, INGEST_SEED = 104, 4, 8, 4
+
+
+def _ingest_files(path):
+    """INGEST_ROWS seeded rows (1025 int32 tokens and an int64 row_id) in
+    INGEST_FILES parquet files under ``path``, written with pyarrow."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    tokens = np.random.default_rng(INGEST_SEED).integers(0, 50257, (INGEST_ROWS, 1025), dtype=np.int32)
+    per = INGEST_ROWS // INGEST_FILES
+    os.makedirs(path)
+    for i in range(INGEST_FILES):
+        rows = slice(i * per, (i + 1) * per)
+        pq.write_table(pa.table({
+            "tokens": pa.FixedSizeListArray.from_arrays(pa.array(tokens[rows].reshape(-1)), 1025),
+            "row_id": pa.array(np.arange(INGEST_ROWS, dtype=np.int64)[rows]),
+        }), os.path.join(path, f"part-{i}.parquet"))
+    return tokens.nbytes
+
+
+def _ingest_rows(path):
+    """row_id -> tokens, read from the files with pyarrow (not through
+    Data)."""
+    import glob
+
+    import pyarrow.parquet as pq
+
+    out = {}
+    for f in sorted(glob.glob(os.path.join(path, "*.parquet"))):
+        t = pq.read_table(f)
+        flat = t.column("tokens").combine_chunks().flatten().to_numpy()
+        for rid, row in zip(t.column("row_id").to_pylist(), flat.reshape(t.num_rows, -1)):
+            out[rid] = row
+    return out
+
+
+def _split_tokens(batch):
+    """A Data map_batches stage: each row's 1025 tokens as int64 inputs and
+    targets of 1024."""
+    import numpy as np
+
+    tok = batch["tokens"].astype(np.int64)
+    return {"inputs": tok[:, :-1], "targets": tok[:, 1:], "row_id": batch["row_id"]}
+
+
+def _ingest_loop(config):
+    """The [ingest] worker's loop: GPT-2-124M from seed 1 on its leased card
+    (phase 6's model and optimizer), one step a batch of its dataset shard,
+    read by iter_device_batches at its default device; one report a step
+    (loss, the batch's row_ids, the ms it waited for the batch, step ms,
+    the kernels' launches), then the shard's Data execution stats."""
+    t_loop = time.time()
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import spmd
+
+    dev = config["device"]
+    t0 = time.time()
+    torch.zeros(1, device=dev)
+    _sync()
+    facts = {**_worker_facts(), "proc_start": _proc_start_epoch(), "loop_entry": t_loop,
+             "cuda_init_s": time.time() - t0, "device_count": torch.cuda.device_count(),
+             "device_name": torch.cuda.get_device_name(0) if dev == "cuda" else None}
+    t0 = time.time()
+    model = gpt2.init(config["cfg"], torch.Generator(device=dev).manual_seed(1), dev)
+    step = spmd.compile_train_step(gpt2.loss_fn, spmd.adamw(model.parameters(), 3e-4, weight_decay=0.1))
+    _sync()
+    facts["build_s"] = time.time() - t0
+    state = spmd.TrainState(0, model)
+    shard = train.get_dataset_shard("train")
+    # the default device is the card; a CPU rehearsal names its own
+    where = {} if dev == "cuda" else {"device": dev}
+    batches = shard.iter_device_batches(batch_size=INGEST_BATCH, **where)
+    i = 0
+    while True:
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        if batch is None:
+            break
+        _flash_counts_zero(fa)
+        _sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"inputs": batch["inputs"], "targets": batch["targets"]})
+        loss = metrics["loss"].item()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        out = {"step": i, "loss": loss, "row_ids": batch["row_id"].tolist(), "wait_ms": wait_ms,
+               "step_ms": step_ms, "launches": _counts(fa), "device": str(batch["inputs"].device),
+               "dtype": str(batch["inputs"].dtype)}
+        if i == 0:
+            out["facts"] = facts
+        train.report(out)
+        i += 1
+    train.report({"end": True, "steps": i, "end_wait_ms": wait_ms, "data_stats": shard._ds.stats()})
+
+
+def phase_ingest(fa, gpt2, spmd, cfg, smi):
+    """[ingest]: TorchTrainer(datasets={"train": ds}) of GPT-2-124M from a
+    num_gpus=1 worker, ds read from parquet through Data; every loss must
+    be the in-process replay's over the same batches, bit for bit."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch.core import api as rt_api
+
+    run = train.RunConfig(name=f"chip_smoke_ingest_{os.getpid()}")
+    trial_dir = os.path.join(run.resolved_storage_path(), run.name)
+    t0 = time.perf_counter()
+    info = rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+    start_s = time.perf_counter() - t0
+    path = os.path.join(info["session_dir"], "ingest_data")
+    try:
+        t0 = time.perf_counter()
+        nbytes = _ingest_files(path)
+        write_s = time.perf_counter() - t0
+        ds = data.read_parquet(path).map_batches(_split_tokens)
+        t_fit = time.time()
+        result = train.TorchTrainer(
+            _ingest_loop,
+            train_loop_config={"cfg": cfg, "device": DEVICE},
+            # a CPU rehearsal leases no card
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=DEVICE == "cuda"),
+            run_config=run,
+            datasets={"train": ds},
+        ).fit()
+        fit_s = time.time() - t_fit
+        rows = _ingest_rows(path)
+    finally:
+        _shutdown_checked(rt, rt_api, "ingest")
+        shutil.rmtree(trial_dir, ignore_errors=True)
+    _log("ingest", "shutdown(): no process of the driver remains; the trial dir is removed")
+    return _ingest_checks(fa, gpt2, spmd, cfg, result, rows, t_fit, fit_s, start_s, nbytes, write_s, smi)
+
+
+def _ingest_checks(fa, gpt2, spmd, cfg, result, rows, t_fit, fit_s, start_s, nbytes, write_s, smi):
+    _require(result.error is None, f"[ingest] fit() ended with {result.error!r}")
+    hist = [m for m in result.metrics_dataframe if "step" in m]
+    end = next(m for m in result.metrics_dataframe if m.get("end"))
+    n_steps = INGEST_ROWS // INGEST_BATCH
+    _require([m["step"] for m in hist] == list(range(n_steps)) and end["steps"] == n_steps,
+             f"[ingest] reported steps {[m['step'] for m in hist]}, expected {n_steps}")
+    seen = [r for m in hist for r in m["row_ids"]]
+    _require(sorted(seen) == list(range(INGEST_ROWS)), f"[ingest] row_ids seen {sorted(seen)}")
+    per_step = {"fwd": cfg.num_layers, "dq": cfg.num_layers, "dkv": cfg.num_layers}
+    bad_launches = [(m["step"], m["launches"]) for m in hist if m["launches"] != per_step]
+    _require(not bad_launches, f"[ingest] steps whose launches were not {per_step}: {bad_launches}")
+    _require(all(m["device"].startswith(DEVICE) and m["dtype"] == "torch.int64" for m in hist),
+             f"[ingest] batches on {[m['device'] for m in hist]} as {[m['dtype'] for m in hist]}")
+    f = hist[0]["facts"]
+    _check_worker(f, "[ingest] worker")
+    if DEVICE == "cuda":
+        _require(f["visible"] == "0" and f["device_count"] == 1,
+                 f"the ingest worker sees CUDA_VISIBLE_DEVICES={f['visible']!r}, {f['device_count']} card(s)")
+
+    # The replay: phase 6's in-process step over the same batches, in the
+    # reported order, read from the files with pyarrow.
+    import numpy as np
+
+    model = gpt2.init(cfg, torch.Generator(device=DEVICE).manual_seed(1), DEVICE)
+    step = spmd.compile_train_step(gpt2.loss_fn, spmd.adamw(model.parameters(), 3e-4, weight_decay=0.1))
+    state, replay = spmd.TrainState(0, model), []
+    for m in hist:
+        tok = torch.from_numpy(np.stack([rows[r] for r in m["row_ids"]]).astype(np.int64)).to(DEVICE)
+        state, metrics = step(state, {"inputs": tok[:, :-1], "targets": tok[:, 1:]})
+        replay.append(metrics["loss"].item())
+    del model, state, step
+    mismatched = [(m["step"], m["loss"], want) for m, want in zip(hist, replay) if m["loss"] != want]
+    losses = [m["loss"] for m in hist]
+    _log("ingest", "loss " + " ".join(f"{x:.6f}" for x in losses))
+    _log("ingest", f"losses against the in-process replay over the same batches: "
+                   f"{len(hist) - len(mismatched)} of {len(hist)} bit-equal; differing {mismatched}")
+    _require(not mismatched, f"[ingest] losses differ from the replay's: {mismatched}")
+    _require(all(math.isfinite(x) for x in losses), f"[ingest] non-finite loss: {losses}")
+
+    waits = [m["wait_ms"] for m in hist]
+    steps_ms = [m["step_ms"] for m in hist[1:]]  # the first step's kernels are cold
+    wait_med, step_med = _spread(waits[1:])[0], _spread(steps_ms)[0]
+    t_import = f["loop_entry"] - t_fit
+    parts = {"reserve_lease_worker_to_loop": t_import, "cuda_init": f["cuda_init_s"], "model_build": f["build_s"],
+             "first_batch_wait": waits[0] / 1e3, "first_step": hist[0]["step_ms"] / 1e3}
+    first_s = hist[0]["_timestamp"] - t_fit
+    launches = {k: sum(m["launches"][k] for m in hist) for k in per_step}
+    _log("ingest", f"{smi}: runtime start {start_s:.3f} s; {INGEST_ROWS} rows ({nbytes / 1e6:.3f} MB of tokens) "
+                   f"written to {INGEST_FILES} parquet files in {write_s:.3f} s; TorchTrainer.fit() {fit_s:.3f} s "
+                   f"in all; first reported step at {first_s:.3f} s: "
+                   + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+                   + f" (the worker process started {f['proc_start'] - t_fit:+.3f} s from fit())")
+    _log("ingest", f"wait for a batch (steps 1-{len(hist) - 1}): median {wait_med:.3f} ms, max {max(waits[1:]):.3f} "
+                   f"ms, against the step's median {step_med:.3f} ms (ratio {wait_med / step_med:.4f}); the "
+                   f"first batch's wait {waits[0]:.3f} ms, the end of the shard's {end['end_wait_ms']:.3f} ms")
+    _log("ingest", f"worker on {f['device_name']} (CUDA_VISIBLE_DEVICES={f['visible']!r}, pid {f['pid']}), "
+                   f"no JAX loaded; kernel launches {launches} ({cfg.num_layers} of each per step, "
+                   f"{len(hist)} steps); every row seen once")
+    for line in end["data_stats"].splitlines():
+        _log("ingest", f"data stats: {line}")
+    return {"launches": launches, "losses": losses, "losses_bitwise": True, "wait_ms_median": wait_med,
+            "wait_ms_max": max(waits[1:]), "step_ms": step_med, "first_step_s": first_s,
+            "first_step_parts_s": parts, "fit_s": fit_s, "data_stats": end["data_stats"]}
+
+
 def _moe_hook(gpt2, record):
     """Wraps gpt2._moe_mlp so that each call records its input and its
     routing: (h, tokens routed, tokens past capacity).  Returns the
@@ -3439,6 +4065,11 @@ def main() -> int:
     t_tune = time.perf_counter()
     tune_out = phase_tune(fa, gpt2, cfg, tokens[0], train, smi)
     _log("done", f"[tune] {time.perf_counter() - t_tune:.1f} s")
+    # The same training fed by the Data library from parquet files.
+    t_ingest = time.perf_counter()
+    ingest = phase_ingest(fa, gpt2, spmd, cfg, smi)
+    torch.cuda.empty_cache()
+    _log("done", f"[ingest] {time.perf_counter() - t_ingest:.1f} s")
     moe = phase_moe(fa, gpt2, spmd, tokens[0], gpt2.GPTConfig.gpt2_124m(
         num_experts=MOE_EXPERTS, attention_impl="flash", remat=False, scan_unroll=12))
     torch.cuda.empty_cache()
@@ -3453,6 +4084,8 @@ def main() -> int:
     llama_out = phase_llama(fa, smi)
     # RLlib: the learners on the card, PPO on CartPole from a card learner.
     rl_out = phase_rllib(fa, smi)
+    # The Podracer plane: its learner actor on the card, then fed by a fleet.
+    podracer = phase_podracer(fa, smi)
     # The multi-rank layouts, over gloo on the host.
     t0 = time.perf_counter()
     dryrun_lines = phase_dryrun()
@@ -3492,11 +4125,14 @@ def main() -> int:
         entry["spmd_launches"] = spmd_out["launches"][key]
         entry["pipeline_launches"] = pipe["launches"][key]
         entry["rllib_launches"] = rl_out["launches"][key]
+        entry["ingest_launches"] = ingest["launches"][key]
+        entry["podracer_launches"] = podracer["launches"][key]
     print(json.dumps({"forward_ms": fwd, "forward_path_fwd_launches": fwd_launches,
                       "train_step_ms": train["step_ms"], "train_tokens_per_s": train["tokens_per_s"],
                       "head_backward_ms": head, "runtime": runtime, "fit": fit, "tune": tune_out, "moe": moe,
                       "vit": vit_out, "spmd": spmd_out, "pipeline": pipe, "pipeline_mpmd": mpmd,
-                      "rllib": rl_out, "dryrun": dryrun_lines, **llama_out,
+                      "rllib": rl_out, "ingest": ingest, "podracer": podracer, "dryrun": dryrun_lines,
+                      **llama_out,
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ envs with CPU inference; learners hold their modules on the card (or the
 CPU, when the config asks for it) and update them in process, or as a
 data-parallel LearnerGroup of actors.  Algorithms (PPO, DQN, IMPALA, APPO,
 SAC, multi-agent PPO, BC, CQL, MARWIL) share the Algorithm/AlgorithmConfig
-skeleton.  The Podracer plane (``rllib/podracer/``) is not ported yet
-(ROADMAP A8b).
+skeleton.  The Podracer plane (``rllib/podracer/``) runs IMPALA and APPO
+with ``throughput_mode="podracer"``: a learner actor on the card fed by a
+free-running fleet of CPU env runners.
 """
 
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig  # noqa: F401

@@ -10,8 +10,9 @@ very-stale fragment cannot blow up the update.  The optional target
 network (use_kl_loss analogue collapsed: the clip does the trust-region
 work) smooths tgt_logp drift between weight syncs.
 
-APPO inherits IMPALA's ``throughput_mode`` handling: "podracer" raises
-until the plane is ported (ROADMAP A8b).
+APPO inherits IMPALA's ``throughput_mode="podracer"``: the plane's
+learner actor is built from ``learner_cls``, the clipped-surrogate
+learner.
 """
 
 from __future__ import annotations

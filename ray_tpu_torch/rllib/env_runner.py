@@ -9,11 +9,10 @@ inside the runner, explicitly (the runner's lease holds no card, and the
 raylet gives it ``CUDA_VISIBLE_DEVICES=""``), with weights synced from the
 learner each iteration as CPU state dicts.  Sampling draws from a
 ``torch.Generator`` seeded ``seed + 10_000``, as the reference seeds its
-key.
-
-The podracer plane's runner methods (``sample_podracer``,
-``set_weights_versioned``, ``join_weight_broadcast``) come with the
-plane's port (ROADMAP A8b).
+key.  The podracer plane's runner methods (``sample_podracer``,
+``set_weights_versioned``, ``join_weight_broadcast``) put each fragment
+into the store here and tag it with the learner version of the weights
+that sampled it.
 """
 
 from __future__ import annotations
@@ -58,6 +57,10 @@ class EnvRunnerActor:
         # per-env running episode returns for metrics
         self._ep_return = np.zeros(num_envs, np.float64)
         self._completed: List[float] = []
+        # podracer-plane bookkeeping: which learner version these params
+        # are, and a per-runner fragment counter (the bit-repro key)
+        self._policy_version = 0
+        self._frag_seq = 0
 
     def _process(self, obs) -> np.ndarray:
         """Connector-transform a raw obs batch.
@@ -89,6 +92,13 @@ class EnvRunnerActor:
     def set_weights(self, params) -> bool:
         self._module.load_state_dict(params)
         return True
+
+    def set_weights_versioned(self, params, policy_version: int) -> int:
+        """Put-path weight sync that also stamps the learner version the
+        podracer plane tags fragments with."""
+        self._module.load_state_dict(params)
+        self._policy_version = int(policy_version)
+        return self._policy_version
 
     def get_weights(self):
         return core.state_dict_cpu(self._module)
@@ -204,17 +214,59 @@ class EnvRunnerActor:
             "episode_returns": np.asarray(episode_returns, np.float64),
         }
 
+    # -- podracer plane --------------------------------------------------
+    def sample_podracer(self, num_steps: int, epsilon: Optional[float] = None):
+        """Free-running fragment production: sample, put the payload into
+        the shm arena HERE (vectored write; inline slab when tiny), and
+        return only ``(meta, ref)`` — the driver routes the few-dozen-byte
+        meta and forwards the ref to the learner, whose arg-unpack
+        resolves it over the direct-shm get path.  Payload bytes never
+        transit the driver at any fragment size."""
+        frag = self.sample(num_steps, epsilon)
+        meta = {
+            "runner_index": -1,  # stamped by the driver (stable across
+            "seq": self._frag_seq,  # replaces; the actor can't know it)
+            "policy_version": self._policy_version,
+            "env_steps": int(num_steps * self._num_envs),
+            "suspect": False,
+            "incarnation": 0,
+        }
+        self._frag_seq += 1
+        return meta, ray_tpu_torch.put(frag)
+
+    def join_weight_broadcast(
+        self, group_name: str, root_rank: int = 0,
+        wire_dtype: Optional[str] = None,
+    ) -> int:
+        """Member side of the podracer weight fan-out: one collective
+        receive replaces a per-runner put.  The skeleton carries the
+        policy version exactly; with a quantized ``wire_dtype`` every
+        rank (root included) adopts the same decode, so the fleet ends
+        bit-identical."""
+        from ray_tpu_torch.util import collective as col
+
+        out = col.broadcast_tree(
+            None, src_rank=root_rank, group_name=group_name,
+            wire_dtype=wire_dtype,
+        )
+        self._module.load_state_dict(out["w"])
+        self._policy_version = int(out["v"])
+        return self._policy_version
+
     def sync_weights_bcast(
         self, params, group_name: str, root_rank: int = 0,
+        wire_dtype: Optional[str] = None,
     ) -> bool:
         """Collective-routed ``EnvRunnerGroup.sync_weights`` leg.  The
         root receives the params with the call (arg-unpack from one shm
         ref) and broadcasts; members pass ``params=None`` and receive.
-        Every rank adopts the broadcast result."""
+        Every rank adopts the broadcast result, so a quantized wire still
+        leaves all replicas bit-identical."""
         from ray_tpu_torch.util import collective as col
 
         out = col.broadcast_tree(
             params, src_rank=root_rank, group_name=group_name,
+            wire_dtype=wire_dtype,
         )
         self._module.load_state_dict(out)
         return True
@@ -226,7 +278,9 @@ class EnvRunnerGroup:
     ``sync_weights`` routes through ``col.broadcast_tree`` over a lazily
     created persistent group (runner 0 = root) — one shm put to the root
     plus one collective instead of N per-actor puts, mirroring the
-    LearnerGroup fan-out path.  Any collective failure trips a
+    LearnerGroup fan-out path.  ``weight_wire_dtype`` opts into the
+    block-quantized wire (replicas still bit-identical: every rank,
+    root included, adopts the decode).  Any collective failure trips a
     permanent fallback to the legacy put path, so weight sync never
     gets less reliable than it was.
     """
@@ -239,16 +293,44 @@ class EnvRunnerGroup:
         num_envs_per_runner: int = 4,
         seed: int = 0,
         env_to_module_fn=None,
+        weight_wire_dtype: Optional[str] = None,
     ):
+        # spawn args kept so a dead runner can be stateless-restarted
+        # (podracer replace_runner) with a decorrelated seed
+        self._spawn = dict(
+            env_fn=env_fn, module_config=module_config,
+            num_envs_per_runner=num_envs_per_runner, seed=seed,
+            env_to_module_fn=env_to_module_fn,
+        )
+        self.weight_wire_dtype = weight_wire_dtype
         self._sync_group: Optional[str] = None
         self._col_broken = False
         self.runners = [
-            EnvRunnerActor.options(num_cpus=1).remote(
-                env_fn, module_config, num_envs_per_runner,
-                seed + 1000 * i, env_to_module_fn,
-            )
-            for i in range(num_runners)
+            self._spawn_runner(i) for i in range(num_runners)
         ]
+
+    def _spawn_runner(self, index: int, incarnation: int = 0):
+        s = self._spawn
+        # decorrelate replacement streams from every prior incarnation
+        seed = s["seed"] + 1000 * index + 101 * incarnation
+        return EnvRunnerActor.options(num_cpus=1).remote(
+            s["env_fn"], s["module_config"], s["num_envs_per_runner"],
+            seed, s["env_to_module_fn"],
+        )
+
+    def replace_runner(self, index: int, incarnation: int = 1):
+        """Stateless-restart a dead runner in place (env runners carry no
+        state worth migrating — the podracer failure contract)."""
+        old = self.runners[index]
+        try:
+            ray_tpu_torch.kill(old)
+        except Exception:
+            pass
+        self.runners[index] = self._spawn_runner(index, incarnation)
+        # the old group membership is poisoned; the podracer runner
+        # re-forms its own fan-out group, ours is rebuilt on next sync
+        self._drop_sync_group()
+        return self.runners[index]
 
     def sample(
         self, num_steps: int, epsilon: Optional[float] = None
@@ -298,6 +380,7 @@ class EnvRunnerGroup:
         refs = [
             r.sync_weights_bcast.remote(
                 ref if i == 0 else None, self._sync_group, 0,
+                self.weight_wire_dtype,
             )
             for i, r in enumerate(self.runners)
         ]

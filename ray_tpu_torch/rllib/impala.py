@@ -19,9 +19,9 @@ c=min(c̄, π/μ) give corrected value targets
 
 computed by a reverse loop over the fragment.
 
-``throughput_mode="podracer"`` (the free-running Podracer plane) is not
-ported yet: it raises, naming ROADMAP A8b, and never runs the in-driver
-loop in its place.
+``throughput_mode="podracer"`` moves the learner into the Podracer
+plane's learner actor (on its leased card unless the config asks for the
+CPU), fed by a free-running CPU fleet (``rllib/podracer/``).
 """
 
 from __future__ import annotations
@@ -59,10 +59,15 @@ class IMPALAConfig(AlgorithmConfig):
     hidden: tuple = (64, 64)
     # how many fragments to consume per training_step call
     updates_per_iteration: int = 4
-    # "podracer" is the podracer throughput plane (free-running fleet +
-    # central learner actor + collective weight fan-out): it raises until
-    # ROADMAP A8b ports it; None keeps the in-driver loop
+    # "podracer" routes the loop onto the podracer throughput plane
+    # (free-running fleet + central learner actor + collective weight
+    # fan-out); None keeps the in-driver loop
     throughput_mode: Optional[str] = None
+    podracer_batch_fragments: int = 2
+    podracer_max_policy_lag: int = 4
+    podracer_weight_sync_period: int = 1
+    # None = exact fp32 fan-out; "bf16"/"int8" = block-quantized
+    podracer_weight_wire_dtype: Optional[str] = None
 
 
 def vtrace(behavior_logp, target_logp, rewards, values, dones, last_values,
@@ -161,18 +166,22 @@ def impala_batch_from_fragments(frags) -> Dict[str, np.ndarray]:
 class IMPALA(Algorithm):
     """Async decoupled actor-learner (ray: impala.py training_step's
     aggregated async sampling, minus the GPU aggregation actors the
-    single-learner case doesn't need)."""
+    single-learner case doesn't need).
+
+    ``throughput_mode="podracer"`` swaps the in-driver update loop for
+    the podracer plane: the learner moves into a dedicated actor fed by
+    a free-running fleet over shm fragment refs, with staleness-bounded
+    batching (V-trace is exactly the correction that makes the extra
+    policy lag sound) and collective weight fan-out."""
 
     learner_cls = IMPALALearner  # overridden by APPO
 
     def _setup(self, config: IMPALAConfig):
         self._inflight = {}
+        self._podracer = None
         if getattr(config, "throughput_mode", None) == "podracer":
-            raise NotImplementedError(
-                "throughput_mode='podracer' (the free-running Podracer plane: "
-                "rllib/podracer/) is not ported yet (ROADMAP A8b); leave "
-                "throughput_mode=None for the in-driver loop"
-            )
+            self._setup_podracer(config)
+            return
         spaces = probe_env_spaces(config.env, config.env_to_module)
         self.module_config = build_module_config(config, spaces)
         self.learner = self.learner_cls(config, self.module_config)
@@ -191,7 +200,60 @@ class IMPALA(Algorithm):
             for r in self.env_runner_group.runners
         }
 
+    def _setup_podracer(self, config: IMPALAConfig):
+        import functools
+
+        from ray_tpu_torch.rllib.podracer import (
+            PodracerConfig,
+            PodracerRunner,
+            check_learner_card,
+        )
+
+        # refused before any env is probed or any process started
+        check_learner_card(config.learner_device)
+        spaces = probe_env_spaces(config.env, config.env_to_module)
+        self.module_config = build_module_config(config, spaces)
+        self.env_runner_group = EnvRunnerGroup(
+            config.env,
+            self.module_config,
+            num_runners=config.num_env_runners,
+            num_envs_per_runner=config.num_envs_per_runner,
+            seed=config.seed,
+            env_to_module_fn=config.env_to_module,
+        )
+        # the learner lives in the podracer actor, not this process
+        self.learner = None
+        self._podracer = PodracerRunner(
+            self.env_runner_group,
+            functools.partial(self.learner_cls, config, self.module_config),
+            impala_batch_from_fragments,
+            PodracerConfig(
+                rollout_fragment_length=config.rollout_fragment_length,
+                batch_fragments=config.podracer_batch_fragments,
+                max_policy_lag=config.podracer_max_policy_lag,
+                weight_sync_period=config.podracer_weight_sync_period,
+                weight_wire_dtype=config.podracer_weight_wire_dtype,
+                learner_device=config.learner_device,
+            ),
+        )
+
+    def _eval_weights(self):
+        if self._podracer is not None:
+            return self._podracer.get_weights()
+        return super()._eval_weights()
+
+    def _podracer_training_step(self) -> Dict[str, Any]:
+        c = self.config
+        t0 = time.monotonic()
+        out = self._podracer.run(min_updates=c.updates_per_iteration)
+        self._record_returns(np.asarray(out.pop("episode_returns")))
+        self._total_steps += int(out["env_steps_sampled"])
+        out["iter_time_s"] = time.monotonic() - t0
+        return out
+
     def training_step(self) -> Dict[str, Any]:
+        if self._podracer is not None:
+            return self._podracer_training_step()
         c = self.config
         stats_acc: Dict[str, float] = {}
         t0 = time.monotonic()
@@ -228,14 +290,26 @@ class IMPALA(Algorithm):
         return stats_acc
 
     def get_state(self) -> Dict[str, Any]:
+        if self._podracer is not None:
+            return {"params": self._podracer.get_weights()}
         return {"params": self.learner.get_weights()}
 
     def set_state(self, state: Dict[str, Any]) -> None:
+        if self._podracer is not None:
+            ray_tpu_torch.get(
+                self._podracer.learner.set_weights.remote(state["params"]),
+                timeout=120.0,
+            )
+            self._podracer._put_sync_all()
+            return
         self.learner.set_weights(state["params"])
         self.env_runner_group.sync_weights(self.learner.get_weights())
 
     def stop(self) -> None:
         self._inflight.clear()
+        if getattr(self, "_podracer", None) is not None:
+            self._podracer.stop()
+            self._podracer = None
         group = getattr(self, "env_runner_group", None)
         if group is not None:
             group.stop()

@@ -194,15 +194,18 @@ def node_gpus() -> float:
     return GPUAcceleratorManager().num_gpus()
 
 
-def check_learner_cards(num_learners: int, device) -> None:
-    """Refuse, rather than wait on leases that cannot be had, a group of
-    ``num_learners >= 2`` learners on ``"cuda"`` (one card each) on a node
-    with fewer cards."""
-    if num_learners >= 2 and torch.device(device).type == "cuda":
+def check_learner_cards(num_learners: int, device, what: str = "") -> None:
+    """Refuse, rather than wait on leases that cannot be had, learners on
+    ``"cuda"`` (one card each) on a node with fewer cards: a group of
+    ``num_learners >= 2`` (an in-process learner holds no lease), or, with
+    ``what`` naming it, a lone learner actor of ``num_learners == 1``."""
+    wanted = num_learners >= 2 or (what and num_learners >= 1)
+    if wanted and torch.device(device).type == "cuda":
         have = node_gpus()
         if have < num_learners:
+            what = what or f"a LearnerGroup of {num_learners} learners"
             raise RuntimeError(
-                f"a LearnerGroup of {num_learners} learners on 'cuda' wants {num_learners} "
+                f"{what} on 'cuda' wants {num_learners} "
                 f"GPU(s), one a learner; the node has {have:g}")
 
 

@@ -161,6 +161,30 @@ def test_rllib_import_loads_no_jax_or_reference():
     assert out.stdout.strip() == "[]"
 
 
+def test_data_import_loads_no_torch_or_jax():
+    """The Data library's blocks are Arrow tables: importing it (and the
+    stats actor's module, which every stage task loads) loads pyarrow and
+    neither torch nor JAX; iter_torch_batches and iter_device_batches load
+    torch in the process that reads them."""
+    code = ("import sys, ray_tpu_torch.data, ray_tpu_torch.data.stats; "
+            "print(sorted(m for m in ('torch', 'jax', 'pandas') if m in sys.modules))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_podracer_import_loads_no_jax_or_reference():
+    code = ("import sys, ray_tpu_torch.rllib.podracer; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'ray_tpu')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"gpt2.py", "llama.py", "llm.py", "flash_attention.py", "chip_smoke.py",
@@ -184,6 +208,11 @@ def test_port_files_found():
                      ("__init__", "core", "connectors", "learner_group", "algorithm", "env_runner", "ppo",
                       "dqn", "impala", "appo", "sac", "multi_agent", "offline", "cql", "marwil")}
     assert (REPO / "ray_tpu_torch" / "models" / "catalog.py") in PORT_FILES
+    podracer = {p.relative_to(REPO).as_posix() for p in PORT_FILES if p.parent.name == "podracer"}
+    assert podracer == {f"ray_tpu_torch/rllib/podracer/{n}.py" for n in ("__init__", "fragment", "learner", "runner")}
+    data = {p.relative_to(REPO).as_posix() for p in PORT_FILES if p.parent.name == "data"}
+    assert data == {f"ray_tpu_torch/data/{n}.py" for n in
+                    ("__init__", "block", "datasource", "stats", "dataset", "read_api")}
     serving = {"controller.py", "handle.py", "proxy.py", "replica.py", "weights.py",
                "admission.py", "scheduler.py", "collective.py", "rpc_backend.py",
                "quantize.py", "quant.py"}

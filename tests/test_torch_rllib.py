@@ -624,6 +624,16 @@ def test_learners_default_to_cuda():
 
 
 @pytest.mark.parametrize("config", [impala.IMPALAConfig, appo.APPOConfig])
-def test_podracer_mode_raises(config):
-    with pytest.raises(NotImplementedError, match="A8b"):
-        config(env="CartPole-v1", throughput_mode="podracer").learners(0, device="cpu").build()
+def test_podracer_mode_raises(config, monkeypatch):
+    """Podracer mode puts its learner actor on a card: on a node without
+    one it is refused when the algorithm is made, before any env is probed
+    or any process started (the mode itself trains: tests/
+    test_zz_torch_podracer.py)."""
+    monkeypatch.setenv("RT_GPU_COUNT_OVERRIDE", "0")
+    port_config.cfg.reset()
+    try:
+        with pytest.raises(RuntimeError, match=r"a podracer learner on 'cuda' wants 1 GPU\(s\).*the node has 0"):
+            config(env="CartPole-v1", throughput_mode="podracer").build()
+    finally:
+        monkeypatch.delenv("RT_GPU_COUNT_OVERRIDE")
+        port_config.cfg.reset()
