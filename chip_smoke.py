@@ -283,14 +283,56 @@ and before phase 18:
      and launch no flash kernel.  Prints fragments/s, env steps trained/s,
      updates/s, GB/s of fragments into the learner, fan-out ms and one
      profiled update's device-busy ms and idle share.
+Phases 24-26 run after phase 22 and before phase 14, in that order; each
+starts the port's runtime and ends with no process of the driver left,
+and each drives GPT-2-124M from phase 6's seed-1 weights, B=8, S=1024:
+  24. [dag]: a compiled DAG, InputNode -> a CPU actor's make_batch (the
+     (8, 1025) token batch drawn on the CPU from the input's seed) -> a
+     num_gpus=1 actor's forward (the model on its card: each row's mean
+     loss and the last position's f32 logits).  The outputs of 4 seeds
+     must equal, bit for bit, the same actor's .remote() results and the
+     driver's own forward, arriving as CPU tensors; 4 executions in
+     flight before the first get() come back in order; an error raised
+     in the GPU stage reaches get() and the DAG runs on; the GPU stage
+     must launch the forward kernel 12 times an iteration (read after
+     teardown); the same graph compiled with a 256 KiB buffer must fail
+     get() naming the writer's capacity ValueError; after teardown and a
+     kill a fresh num_gpus=1 actor leases the card.  Prints the median
+     ms an iteration of the forward and of a no-op, by DAG and by
+     .remote() + get;
+  25. [workflow]: a durable workflow of 4 tasks, init (CPU: the seed-1
+     state dict, bound as a constant) -> train (num_gpus=1: phase 6's
+     step 3 times on phase 6's batch, bound as a CUDA constant) -> eval
+     (num_gpus=1: the trained weights' forward) -> report (CPU).  eval
+     fails on its first run (a marker file): the run must fail, resume()
+     rerun eval and report only (train's marker count stays 1) and give
+     what an uninterrupted run gives, bit for bit; train's losses must
+     equal phase 6's first 3 bit for bit; 12 launches of each kernel a
+     train step, 12 forward launches in eval; every step file and
+     get_output() must load in a process with CUDA_VISIBLE_DEVICES="",
+     every tensor on the CPU.  Prints each checkpoint's bytes and write
+     s;
+  26. [cluster]: a Cluster of a head with 2 CPUs and no card and a node
+     with 2 CPUs and num_gpus=1, the driver attached by
+     util.client.connect: a second one-card node must be refused; a
+     num_gpus=1 task must land on the card's node, see that card alone,
+     launch the forward kernel 12 times and send per-row losses through a
+     util.queue.Queue equal, bit for bit, to the driver's; list_nodes()
+     and summarize() show GPU 1 on that node only and its lease while the
+     task runs, worker_stacks() the task in its worker; a second GPU task
+     must pend; the node is removed (a hard kill): its death must be an
+     event, the first task's error reach get(), the second still pend,
+     and a new add_node(num_gpus=1) get the same card and run it there.
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches on the training path (the forward kernel's in the
 runtime's GPU worker, "runtime_launches"; each kernel's in the trainer's
 worker, "fit_launches", in the Tune trials' processes, "tune_launches",
 in [moe], "moe_launches", through the mesh path, "spmd_launches",
 through the pipeline's stage programs, "pipeline_launches", in
-[rllib], "rllib_launches", in the [ingest] worker, "ingest_launches", and
-in [podracer], "podracer_launches"),
+[rllib], "rllib_launches", in the [ingest] worker, "ingest_launches",
+in [podracer], "podracer_launches", in the [dag]'s GPU stage over the DAG's
+iterations, "dag_launches", in [workflow]'s train and eval workers,
+"workflow_launches", and in [cluster]'s GPU task, "cluster_launches"),
 error against its plain version,
 time, the plain version's time, the library call's time and the card's
 bound; the last line is {"ok": true, "device": {...}}.  With no CUDA device
@@ -3384,6 +3426,654 @@ def _ingest_checks(fa, gpt2, spmd, cfg, result, rows, t_fit, fit_s, start_s, nby
             "first_step_parts_s": parts, "fit_s": fit_s, "data_stats": end["data_stats"]}
 
 
+# [dag], [workflow], [cluster]: a compiled DAG, a durable workflow and a
+# multi-raylet Cluster, each driving GPT-2-124M from [train]'s seed on the
+# card.  Their batches are BATCH_SHAPE tokens (a CPU rehearsal shrinks it).
+BATCH_SHAPE = (8, 1025)
+DAG_ITERS = 20  # iterations behind each median the phase prints
+DAG_IN_FLIGHT = 4
+# Holds the CPU stage's token batch (65.6 KB at BATCH_SHAPE), not the GPU
+# stage's output (the last position's f32 logits, 1.6 MB).
+DAG_SMALL_BUFFER = 1 << 18
+WF_TRAIN_STEPS = 3
+# The [cluster] GPU task's forwards go on after its first (at most this
+# long) until its node is removed under it: the driver reads its lease and
+# stacks meanwhile.
+CLUSTER_HOLD_S = 120.0
+
+
+def _card(device):
+    """The device a stage, step or task of these phases computes on: the
+    leased card, named explicitly (never the thread's current device), and
+    a refusal where the lease has none.  A CPU rehearsal passes "cpu"."""
+    if device == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available() or torch.cuda.device_count() != 1:
+        raise RuntimeError(f"no single card in this lease: CUDA_VISIBLE_DEVICES="
+                           f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r}")
+    return torch.device("cuda", 0)
+
+
+def _seed1_state(gpt2, cfg, device):
+    """[train]'s initial weights (seed 1, drawn on ``device``): the model and
+    its CPU state dict (f32, as the model keeps them)."""
+    model = gpt2.init(cfg, torch.Generator(device=device).manual_seed(1), device)
+    return model, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def _seeded_batch(seed, vocab_size):
+    """A BATCH_SHAPE int64 token batch drawn on the CPU from ``seed``."""
+    return torch.randint(0, vocab_size, BATCH_SHAPE, generator=torch.Generator().manual_seed(seed))
+
+
+def _rows_forward(model, tokens):
+    """One flash forward of tokens[:, :-1]: each row's mean next-token loss
+    and the last position's logits, both f32 on the model's device (the
+    full logits stay on the card: 1.6 GB at (8, 1024))."""
+    import torch.nn.functional as F
+
+    with torch.inference_mode():
+        logits = model(tokens[:, :-1])
+        rows = F.cross_entropy(logits.flatten(0, 1), tokens[:, 1:].flatten(), reduction="none")
+        return rows.view(tokens.shape[0], -1).mean(1), logits[:, -1].clone()
+
+
+def _card_facts():
+    return {**_worker_facts(), "device_count": torch.cuda.device_count()}
+
+
+def _bit_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+class _DagBatcher:
+    """[dag]'s CPU stage: the seeded token batch of its input."""
+
+    def __init__(self, vocab_size):
+        self.vocab_size = vocab_size
+
+    def make_batch(self, seed):
+        return seed, _seeded_batch(abs(seed), self.vocab_size)
+
+    def echo(self, x):
+        return x
+
+
+class _DagForward:
+    """[dag]'s GPU stage: GPT-2-124M on its leased card, per-row losses and
+    last-position logits of each batch; it refuses a negative seed."""
+
+    def __init__(self, refs, cfg, device):
+        import ray_tpu_torch
+
+        self.device = _card(device)
+        _, self.model = _build_gpt2(ray_tpu_torch.get(refs[0]), cfg, self.device)
+        self.launches = []
+
+    def forward(self, item):
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        seed, tokens = item
+        if seed < 0:
+            raise ValueError(f"the GPU stage refuses the batch of seed {seed}")
+        before = fa.flash_attention_fwd.launches
+        rows, last = _rows_forward(self.model, tokens.to(self.device))
+        self.launches.append(fa.flash_attention_fwd.launches - before)
+        return {"seed": seed, "rows": rows, "last": last}
+
+    def facts(self):
+        return {**_card_facts(), "launches": list(self.launches)}
+
+
+class _CardHolder:
+    def facts(self):
+        return _card_facts()
+
+
+def phase_dag(gpt2, cfg, smi):
+    """[dag]: InputNode -> CPU actor's make_batch -> GPU actor's forward,
+    compiled onto shm channels: bit-equal to the same actor's .remote() and
+    to the driver's forward, pipelined, errors, capacity, teardown."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api as rt_api
+
+    t0 = time.perf_counter()
+    rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+    start_s = time.perf_counter() - t0
+    try:
+        out = _dag_checks(rt, gpt2, cfg, smi)
+    finally:
+        _shutdown_checked(rt, rt_api, "dag")
+    _log("dag", f"shutdown(): no process of the driver remains; cluster start {start_s:.3f} s")
+    return out
+
+
+def _dag_checks(rt, gpt2, cfg, smi):
+    from ray_tpu_torch.dag import InputNode
+
+    model, state = _seed1_state(gpt2, cfg, DEVICE)
+    ref = rt.put(state)
+    seeds = list(range(DAG_IN_FLIGHT))
+    want = {}
+    for s in seeds:
+        rows, last = _rows_forward(model, _seeded_batch(s, cfg.vocab_size).to(DEVICE))
+        want[s] = (rows.cpu(), last.cpu())
+    del model
+    cpu = rt.remote(num_cpus=1)(_DagBatcher).remote(cfg.vocab_size)
+    gpu = rt.remote(num_gpus=1)(_DagForward).remote([ref], cfg, DEVICE)
+
+    def held(got, s, what):
+        _require(got["seed"] == s, f"[dag] {what}: output of seed {got['seed']} where {s} was due")
+        _require(got["rows"].device.type == "cpu" and got["last"].device.type == "cpu",
+                 f"[dag] {what}: the stage's tensors did not arrive as CPU tensors")
+        _require(_bit_equal(got["rows"], want[s][0]) and _bit_equal(got["last"], want[s][1]),
+                 f"[dag] {what}: seed {s} differs from the driver's forward: rows max |d| "
+                 f"{(got['rows'] - want[s][0]).abs().max().item():.3g}")
+
+    # The same actor through .remote() + get, before the DAG's loop holds
+    # the actor's thread (a .remote() call would wait for its teardown).
+    t0 = time.perf_counter()
+    remote = {s: rt.get(gpu.forward.remote(cpu.make_batch.remote(s)), timeout=600) for s in seeds}
+    first_s = time.perf_counter() - t0
+    for s in seeds:
+        held(remote[s], s, ".remote()")
+    remote_ms = []
+    for i in range(DAG_ITERS):
+        t0 = time.perf_counter()
+        rt.get(gpu.forward.remote(cpu.make_batch.remote(i % len(seeds))), timeout=300)
+        remote_ms.append((time.perf_counter() - t0) * 1e3)
+    n_remote = len(seeds) + DAG_ITERS
+
+    with InputNode() as inp:
+        out = gpu.forward.bind(cpu.make_batch.bind(inp))
+    t0 = time.perf_counter()
+    dag = out.experimental_compile()
+    compile_s = time.perf_counter() - t0
+    try:
+        for s in seeds:
+            got = dag.execute(s).get(timeout=300)
+            held(got, s, "execute")
+            _require(_bit_equal(got["rows"], remote[s]["rows"]) and _bit_equal(got["last"], remote[s]["last"]),
+                     f"[dag] seed {s}: the DAG's output differs from the same actor's .remote()")
+        refs = [dag.execute(s) for s in seeds]  # all in flight before the first get
+        for s, r in zip(seeds, refs):
+            held(r.get(timeout=300), s, f"{len(seeds)} in flight")
+        try:
+            dag.execute(-1).get(timeout=300)
+            raise AssertionError("[dag] the GPU stage's error did not reach get()")
+        except ValueError as e:
+            _require("refuses the batch of seed -1" in str(e), f"[dag] the stage's error arrived as {e!r}")
+        held(dag.execute(0).get(timeout=300), 0, "after the error")
+        dag_ms = []
+        for i in range(DAG_ITERS):
+            t0 = time.perf_counter()
+            dag.execute(i % len(seeds)).get(timeout=300)
+            dag_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dag.teardown()
+    facts = rt.get(gpu.facts.remote(), timeout=60)  # the loop has let go of the actor's thread
+    per_iter = facts["launches"][n_remote:]
+    n_dag = 2 * len(seeds) + 1 + DAG_ITERS
+    _require(len(per_iter) == n_dag and all(n == cfg.num_layers for n in per_iter),
+             f"[dag] forward launches per DAG iteration {per_iter}, expected {cfg.num_layers} in each of {n_dag}")
+    _check_worker(facts, "[dag] GPU actor")
+    _require(DEVICE == "cpu" or (facts["visible"] == "0" and facts["device_count"] == 1),
+             f"[dag] the GPU actor sees CUDA_VISIBLE_DEVICES={facts['visible']!r}, "
+             f"{facts['device_count']} card(s)")
+
+    # An output over buffer_size_bytes ends the GPU stage's loop; get() names the writer's error.
+    small = out.experimental_compile(buffer_size_bytes=DAG_SMALL_BUFFER)
+    try:
+        small.execute(0).get(timeout=300)
+        raise AssertionError("[dag] an output over buffer_size_bytes was delivered")
+    except AssertionError:
+        raise
+    except Exception as e:  # noqa: BLE001 - the writer's error, checked by name
+        capacity_err = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+        _require("ValueError" in capacity_err and "exceeds channel capacity" in capacity_err,
+                 f"[dag] an oversized output failed get() with {capacity_err}")
+    finally:
+        small.teardown()
+
+    # A no-op through the CPU actor, by DAG and by .remote() + get.
+    with InputNode() as inp:
+        noop = cpu.echo.bind(inp)
+    noop_dag = noop.experimental_compile()
+    try:
+        noop_dag.execute(0).get(timeout=300)
+        noop_dag_ms = []
+        for i in range(DAG_ITERS):
+            t0 = time.perf_counter()
+            _require(noop_dag.execute(i).get(timeout=300) == i, "[dag] the no-op DAG returned another value")
+            noop_dag_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        noop_dag.teardown()
+    rt.get(cpu.echo.remote(0), timeout=60)
+    noop_remote_ms = []
+    for i in range(DAG_ITERS):
+        t0 = time.perf_counter()
+        rt.get(cpu.echo.remote(i), timeout=60)
+        noop_remote_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # After teardown the card goes to a fresh one-GPU actor once the old one is gone.
+    rt.kill(gpu)
+    fresh = rt.get(rt.remote(num_gpus=1)(_CardHolder).remote().facts.remote(), timeout=300)
+    _require(fresh["visible"] == "0" and (DEVICE == "cpu" or fresh["device_count"] == 1),
+             f"[dag] a fresh one-GPU actor sees CUDA_VISIBLE_DEVICES={fresh['visible']!r}")
+    _log("dag", f"{smi}: outputs of {len(seeds)} seeds bit-equal to the same actor's .remote() and to the "
+                f"driver's forward, as CPU tensors; {len(seeds)} executions in flight in order; the GPU "
+                f"stage's error reached get() and the DAG ran on; {cfg.num_layers} forward launches in each "
+                f"of {n_dag} iterations (read after teardown); buffer_size_bytes={DAG_SMALL_BUFFER}: "
+                f"get() raised {capacity_err[:160]!r}; a fresh one-GPU actor leased the card "
+                f"(CUDA_VISIBLE_DEVICES={fresh['visible']!r})")
+    _log("dag", f"{smi}: median of {DAG_ITERS} per iteration: forward by DAG {_pct(dag_ms, 0.5):.3f} ms, by "
+                f".remote() + get {_pct(remote_ms, 0.5):.3f} ms; no-op by DAG {_pct(noop_dag_ms, 0.5):.3f} ms, "
+                f"by .remote() + get {_pct(noop_remote_ms, 0.5):.3f} ms; compile {compile_s:.3f} s; first "
+                f"{len(seeds)} .remote() forwards (actor starts included) {first_s:.3f} s")
+    return {"launches": {"fwd": sum(per_iter), "dq": 0, "dkv": 0},
+            "forward_ms": {"dag": _pct(dag_ms, 0.5), "remote": _pct(remote_ms, 0.5)},
+            "noop_ms": {"dag": _pct(noop_dag_ms, 0.5), "remote": _pct(noop_remote_ms, 0.5)},
+            "compile_s": compile_s, "capacity_error": capacity_err}
+
+
+def _wf_marker(markers, tag):
+    """Count one run of the step ``tag`` in its marker file; the count."""
+    path = os.path.join(markers, tag)
+    n = 1
+    if os.path.exists(path):
+        with open(path) as f:
+            n = int(f.read()) + 1
+    with open(path, "w") as f:
+        f.write(str(n))
+    return n
+
+
+def _wf_init(state):
+    """[workflow]'s first step (CPU): [train]'s initial weights."""
+    return {"state": state, "facts": _card_facts()}
+
+
+def _wf_train(init, cfg, tokens, steps, markers, device):
+    """[workflow]'s train step (one card): [train]'s AdamW step on [train]'s
+    batch, ``steps`` times, each kernel's launches counted per step."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import spmd
+
+    runs = _wf_marker(markers, "train")
+    dev = _card(device)
+    model = gpt2.GPT2(cfg, dev)
+    model.load_state_dict(init["state"])
+    step = spmd.compile_train_step(gpt2.loss_fn, spmd.adamw(model.parameters(), 3e-4, weight_decay=0.1))
+    state = spmd.TrainState(0, model)
+    batch = {"tokens": tokens.to(dev)}
+    losses, launches = [], []
+    for _ in range(steps):
+        _flash_counts_zero(fa)
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+        launches.append(_counts(fa))
+    return {"state": {k: v.detach() for k, v in model.state_dict().items()}, "losses": losses,
+            "launches": launches, "facts": _card_facts(), "runs": runs}
+
+
+def _wf_eval(trained, cfg, tokens, markers, fail_once, device):
+    """[workflow]'s eval step (one card): the trained weights' forward; with
+    ``fail_once`` its first run raises (a marker file counts the runs)."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    runs = _wf_marker(markers, "eval")
+    if fail_once and runs == 1:
+        raise RuntimeError("[workflow] eval's first run fails on purpose")
+    dev = _card(device)
+    model = gpt2.GPT2(cfg, dev)
+    model.load_state_dict(trained["state"])
+    _flash_counts_zero(fa)
+    rows, last = _rows_forward(model, tokens.to(dev))
+    return {"rows": rows, "last": last, "launches": _counts(fa), "train_losses": trained["losses"],
+            "train_launches": trained["launches"], "train_facts": trained["facts"],
+            "facts": _card_facts(), "runs": runs}
+
+
+def _wf_report(evaluated, tokens):
+    """[workflow]'s last step (CPU): the eval's numbers, and where the batch
+    bound into the DAG arrived."""
+    return {**{k: v for k, v in evaluated.items() if k != "facts"}, "eval_facts": evaluated["facts"],
+            "mean_loss": float(evaluated["rows"].mean()), "tokens_device": str(tokens.device),
+            "facts": _card_facts()}
+
+
+def _wf_dag(rt, cfg, state, tokens, markers, fail_once):
+    gpu = {"num_gpus": 1, "max_retries": 0}
+    init = rt.remote(num_gpus=0, max_retries=0)(_wf_init).bind(state)
+    trained = rt.remote(**gpu)(_wf_train).bind(init, cfg, tokens, WF_TRAIN_STEPS, markers, DEVICE)
+    evaluated = rt.remote(**gpu)(_wf_eval).bind(trained, cfg, tokens, markers, fail_once, DEVICE)
+    return rt.remote(num_gpus=0, max_retries=0)(_wf_report).bind(evaluated, tokens)
+
+
+# Run in a process without a card: every step file and get_output() must
+# load there, as CPU tensors.
+_WF_LOAD = r"""
+import json, sys, torch
+from ray_tpu_torch import workflow
+from ray_tpu_torch.workflow import storage
+wid, root = sys.argv[1], sys.argv[2]
+st = storage.WorkflowStorage(wid, root)
+devices = set()
+def walk(x):
+    if isinstance(x, torch.Tensor):
+        devices.add(x.device.type)
+    elif isinstance(x, dict):
+        [walk(v) for v in x.values()]
+    elif isinstance(x, (list, tuple)):
+        [walk(v) for v in x]
+    elif hasattr(x, "args") and hasattr(x, "kwargs"):
+        [walk(v) for v in list(x.args) + list(x.kwargs.values())]
+walk(st.load_dag())
+for sid in st.completed_steps():
+    walk(st.load_step(sid))
+out = workflow.get_output(wid, storage=root)
+print(json.dumps({"cuda": torch.cuda.is_available(), "devices": sorted(devices),
+                  "steps": st.completed_steps(), "rows": out["rows"].tolist(),
+                  "status": workflow.get_status(wid, storage=root)}))
+"""
+
+
+def phase_workflow(gpt2, cfg, tokens, train_out, smi):
+    """[workflow]: init (CPU) -> train (card) -> eval (card) -> report (CPU)
+    as a durable workflow; eval fails once and resume() reruns it alone."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import api as rt_api
+    from ray_tpu_torch.workflow import storage as wf_storage
+
+    t0 = time.perf_counter()
+    info = rt.init(num_cpus=RUNTIME_CPUS, log_to_driver=False)
+    start_s = time.perf_counter() - t0
+    root = os.path.join(info["session_dir"], "workflows")
+    writes = []
+    save_step, save_dag = wf_storage.WorkflowStorage.save_step, wf_storage.WorkflowStorage.save_dag
+
+    def timed_step(self, step_id, value):
+        t = time.perf_counter()
+        save_step(self, step_id, value)
+        writes.append((self.workflow_id, step_id, time.perf_counter() - t,
+                       os.path.getsize(self._step_path(step_id))))
+
+    def timed_dag(self, node):
+        t = time.perf_counter()
+        save_dag(self, node)
+        writes.append((self.workflow_id, "dag.pkl", time.perf_counter() - t,
+                       os.path.getsize(os.path.join(self.dir, "dag.pkl"))))
+
+    wf_storage.WorkflowStorage.save_step, wf_storage.WorkflowStorage.save_dag = timed_step, timed_dag
+    try:
+        out = _workflow_checks(rt, gpt2, cfg, tokens, train_out, root, writes, smi)
+    finally:
+        wf_storage.WorkflowStorage.save_step, wf_storage.WorkflowStorage.save_dag = save_step, save_dag
+        _shutdown_checked(rt, rt_api, "workflow")
+        shutil.rmtree(root, ignore_errors=True)
+    _log("workflow", f"shutdown(): no process of the driver remains; storage removed; cluster start "
+                     f"{start_s:.3f} s")
+    return out
+
+
+def _workflow_checks(rt, gpt2, cfg, tokens, train_out, root, writes, smi):
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.workflow import storage as wf_storage
+
+    _, state = _seed1_state(gpt2, cfg, DEVICE)
+    markers, clean = os.path.join(root, "markers"), os.path.join(root, "markers_clean")
+    os.makedirs(markers), os.makedirs(clean)
+    wid = f"chip_smoke_wf_{os.getpid()}"
+    # tokens is [train]'s batch on the card: a CUDA constant bound into the DAG
+    t0 = time.perf_counter()
+    try:
+        workflow.run(_wf_dag(rt, cfg, state, tokens, markers, True), workflow_id=wid, storage=root)
+        raise AssertionError("[workflow] eval's planned failure did not fail the run")
+    except AssertionError:
+        raise
+    except Exception as e:  # noqa: BLE001 - the planned failure, checked by name
+        _require("fails on purpose" in str(e), f"[workflow] the run failed with {e!r}")
+    first_s = time.perf_counter() - t0
+    _require(workflow.get_status(wid, storage=root) == workflow.FAILED, "[workflow] status after the failure")
+    done_first = wf_storage.WorkflowStorage(wid, root).completed_steps()
+    t0 = time.perf_counter()
+    out = workflow.resume(wid, storage=root)
+    resume_s = time.perf_counter() - t0
+    runs = {tag: int(open(os.path.join(markers, tag)).read()) for tag in ("train", "eval")}
+    _require(runs == {"train": 1, "eval": 2}, f"[workflow] step runs {runs}: resume reran train or not eval")
+    _require(workflow.get_status(wid, storage=root) == workflow.SUCCEEDED, "[workflow] status after resume")
+    t0 = time.perf_counter()
+    clean_out = workflow.run(_wf_dag(rt, cfg, state, tokens, clean, False), workflow_id=wid + "_clean",
+                             storage=root)
+    clean_s = time.perf_counter() - t0
+    for key in ("rows", "last"):
+        _require(out[key].device.type == "cpu" and _bit_equal(out[key], clean_out[key]),
+                 f"[workflow] the resumed run's {key} differ from an uninterrupted run's")
+    _require(out["train_losses"] == clean_out["train_losses"] == train_out["losses"][:WF_TRAIN_STEPS],
+             f"[workflow] train's losses {out['train_losses']} (uninterrupted {clean_out['train_losses']}) "
+             f"are not [train]'s first {WF_TRAIN_STEPS} {train_out['losses'][:WF_TRAIN_STEPS]}")
+    per_step = {"fwd": cfg.num_layers, "dq": cfg.num_layers, "dkv": cfg.num_layers}
+    _require(all(c == per_step for c in out["train_launches"]),
+             f"[workflow] train's launches per step {out['train_launches']}, expected {per_step}")
+    _require(out["launches"] == {"fwd": cfg.num_layers, "dq": 0, "dkv": 0},
+             f"[workflow] eval's launches {out['launches']}")
+    for what, f in (("train", out["train_facts"]), ("eval", out["eval_facts"])):
+        _check_worker(f, f"[workflow] {what} step")
+        _require(f["visible"] == "0" and (DEVICE == "cpu" or f["device_count"] == 1),
+                 f"[workflow] {what} sees CUDA_VISIBLE_DEVICES={f['visible']!r}, {f['device_count']} card(s)")
+    _require(out["facts"]["visible"] == "", f"[workflow] report sees {out['facts']['visible']!r}")
+    _require(out["tokens_device"] == "cpu", f"[workflow] the bound batch arrived on {out['tokens_device']}")
+
+    # Everything on disk loads where no card is visible.
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "-c", _WF_LOAD, wid, root], env=env, capture_output=True,
+                          text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    _require(proc.returncode == 0, f"[workflow] loading without a card failed: {proc.stderr[-2000:]}")
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    _require(not loaded["cuda"] and loaded["devices"] == ["cpu"] and loaded["status"] == workflow.SUCCEEDED
+             and loaded["rows"] == out["rows"].tolist(),
+             f"[workflow] without a card: cuda {loaded['cuda']}, tensor devices {loaded['devices']}, "
+             f"status {loaded['status']}, rows equal {loaded['rows'] == out['rows'].tolist()}")
+    launches = {k: sum(c[k] for c in out["train_launches"]) + out["launches"][k] for k in per_step}
+    mine = [w for w in writes if w[0] == wid]
+    _log("workflow", f"{smi}: the first run failed at eval with {len(done_first)} steps checkpointed "
+                     f"({', '.join(done_first)}) in {first_s:.3f} s; resume() {resume_s:.3f} s ran eval and "
+                     f"report only (markers train 1, eval 2) and equals an uninterrupted run ({clean_s:.3f} s) "
+                     f"bit for bit; train's losses {out['train_losses']} are [train]'s first "
+                     f"{WF_TRAIN_STEPS}; launches: train {per_step} a step, eval {out['launches']}")
+    _log("workflow", f"{smi}: without a card (CUDA_VISIBLE_DEVICES=''): get_output() and {len(loaded['steps'])} "
+                     f"step files load, tensors on {loaded['devices']}; checkpoints: " + ", ".join(
+                         f"{sid} {nbytes} B in {s:.3f} s ({nbytes / s / 1e9:.3f} GB/s)" for _, sid, s, nbytes in mine))
+    return {"launches": launches, "first_run_s": first_s, "resume_s": resume_s, "clean_run_s": clean_s,
+            "checkpoints": [{"step": sid, "bytes": nbytes, "write_s": s} for _, sid, s, nbytes in mine],
+            "train_losses": out["train_losses"], "mean_loss": out["mean_loss"]}
+
+
+def _cluster_forward(refs, cfg, tokens, q, hold_s, device):
+    """[cluster]'s GPU task: GPT-2-124M on its node's card, one counted
+    forward whose per-row losses and facts go into ``q``; then forwards
+    until its node is removed (or ``hold_s`` passes)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    dev = _card(device)
+    _, model = _build_gpt2(ray_tpu_torch.get(refs[0]), cfg, dev)
+    x = tokens.to(dev)
+    fa.flash_attention_fwd.launches = 0
+    rows, last = _rows_forward(model, x)
+    launches = fa.flash_attention_fwd.launches
+    q.put({**_card_facts(), "node_id": ray_tpu_torch.get_runtime_context().node_id,
+           "rows": rows, "last": last, "launches": launches})
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < hold_s:
+        _rows_forward(model, x)
+    return "held to the end"
+
+
+def _cluster_probe():
+    import ray_tpu_torch
+
+    return {**_card_facts(), "node_id": ray_tpu_torch.get_runtime_context().node_id}
+
+
+def _gpu_of(row, key):
+    return row[key].get("GPU", 0.0)
+
+
+def phase_cluster(gpt2, cfg, tokens, smi):
+    """[cluster]: a head of 2 CPUs and no card, a node of 2 CPUs and the
+    card; the driver attached by util.client.connect; the card's task,
+    queue, state rows, stacks; the node's death, a pending lease, the card
+    handed to a new node."""
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    t0 = time.perf_counter()
+    cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 2})
+    try:
+        out = _cluster_checks(cluster, gpt2, cfg, tokens, t0, smi)
+    finally:
+        import ray_tpu_torch as rt
+
+        if rt.is_initialized():
+            rt.shutdown()
+        cluster.shutdown()
+        deadline = time.monotonic() + 15
+        while _descendants(os.getpid()) and time.monotonic() < deadline:
+            time.sleep(0.1)
+    left = {p: _cmdline(p) for p in _descendants(os.getpid())}
+    _require(not left, f"[cluster] processes left after shutdown: {left}")
+    _log("cluster", "disconnect() and Cluster.shutdown(): no process of the driver remains")
+    return out
+
+
+def _cluster_checks(cluster, gpt2, cfg, tokens, t_start, smi):
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import client, events
+    from ray_tpu_torch.util import state as rt_state
+    from ray_tpu_torch.util.queue import Queue
+
+    gpu_node = cluster.add_node(num_cpus=2, num_gpus=1)
+    try:
+        cluster.add_node(num_cpus=1, num_gpus=1)
+        raise AssertionError("[cluster] a second one-card node was added on a one-card host")
+    except ValueError as e:
+        second_err = str(e)
+    ctx = client.connect(cluster.address)
+    cluster.wait_for_nodes()
+    start_s = time.perf_counter() - t_start
+    nodes = {n["node_id"]: n for n in rt_state.list_nodes() if n["alive"]}
+    gpus = {nid[:12]: _gpu_of(n, "resources_total") for nid, n in nodes.items()}
+    _require(len(nodes) == 2 and gpus[gpu_node.node_id[:12]] == 1 and sum(gpus.values()) == 1,
+             f"[cluster] GPUs by node {gpus}: expected 1 on the GPU node only")
+    before = rt_state.summarize()
+    _require(before["resources_total"].get("GPU") == 1 and before["resources_available"].get("GPU") == 1,
+             f"[cluster] summarize() before the task: {before}")
+
+    model, state = _seed1_state(gpt2, cfg, DEVICE)
+    want_rows, want_last = (t.cpu() for t in _rows_forward(model, tokens.to(DEVICE)))
+    del model
+    ref = rt.put(state)
+    q = Queue()
+    t0 = time.perf_counter()
+    fut = rt.remote(num_gpus=1, max_retries=0)(_cluster_forward).remote(
+        [ref], cfg, tokens.cpu(), q, CLUSTER_HOLD_S, DEVICE)
+    got = q.get(timeout=600)
+    first_s = time.perf_counter() - t0
+    # The task holds the card: its lease, its stacks, and a second GPU task
+    # that pends (queued while a GPU node lives: this runtime, as the JAX
+    # package's, refuses at once a lease that no live node could ever hold).
+    during = rt_state.summarize()
+    lease_row = {n["node_id"]: n for n in rt_state.list_nodes()}[gpu_node.node_id]
+    workers = [w for w in rt_state.list_workers([("node_id", "=", gpu_node.node_id)])
+               if w["num_running_tasks"] > 0]
+    _require(len(workers) == 1, f"[cluster] busy workers on the GPU node: {workers}")
+    stacks = rt_state.worker_stacks(workers[0]["worker_id"])
+    _require(during["resources_available"].get("GPU", 0.0) == 0
+             and _gpu_of(lease_row, "resources_available") == 0,
+             f"[cluster] the lease does not show while the task runs: {during['resources_available']}, "
+             f"{lease_row['resources_available']}")
+    stack_text = "\n".join(stacks["stacks"].values())
+    _require("_cluster_forward" in stack_text and stacks["pid"] == got["pid"],
+             f"[cluster] the GPU worker's stacks (pid {stacks['pid']}) do not show the task")
+    _check_worker(got, "[cluster] GPU task")
+    _require(got["node_id"] == gpu_node.node_id, f"[cluster] the GPU task ran on {got['node_id'][:12]}")
+    _require(got["visible"] == gpu_node.gpus[0] and (DEVICE == "cpu" or got["device_count"] == 1),
+             f"[cluster] the GPU task sees CUDA_VISIBLE_DEVICES={got['visible']!r}, {got['device_count']} card(s)")
+    _require(got["launches"] == cfg.num_layers, f"[cluster] forward launches {got['launches']}")
+    rows = got["rows"]
+    _require(rows.device.type == "cpu" and _bit_equal(rows, want_rows) and _bit_equal(got["last"], want_last),
+             f"[cluster] the task's per-row losses (through the queue) differ from the driver's: max |d| "
+             f"{(rows - want_rows).abs().max().item():.3g}")
+    pending = rt.remote(num_gpus=1)(_cluster_probe).remote()
+
+    def still_pending(what):
+        ready, _ = rt.wait([pending], timeout=2.0)
+        _require(not ready, f"[cluster] the second GPU task ran {what}")
+        deadline, waiting = time.monotonic() + 20, 0
+        while not waiting and time.monotonic() < deadline:
+            waiting = rt_state.summarize()["pending_leases"]
+            time.sleep(0.2)
+        _require(waiting >= 1, f"[cluster] no pending lease {what}")
+        return waiting
+
+    waiting = still_pending("while the first held the card")
+
+    # The node dies under the first task: its death is an event, the second
+    # task still pends, and a new node takes the card back and runs it.
+    t0 = time.perf_counter()
+    # A hard kill: a graceful one stops the node's workers first, and the
+    # GCS can grant the queued lease on the node while it shuts down
+    # (ROADMAP C).
+    cluster.remove_node(gpu_node, allow_graceful=False)
+    deadline = time.monotonic() + 60
+    death = []
+    while not death and time.monotonic() < deadline:
+        death = [e for e in events.list_events() if e.get("node_id") == gpu_node.node_id
+                 and "node died" in e["message"]]
+        time.sleep(0.2)
+    _require(death, "[cluster] no event records the GPU node's death")
+    death_s = time.perf_counter() - t0
+    try:
+        rt.get(fut, timeout=120)
+        raise AssertionError("[cluster] the GPU task outlived its node")
+    except AssertionError:
+        raise
+    except Exception as e:  # noqa: BLE001 - the node's death, as the task's error
+        lost = type(e).__name__
+    deadline = time.monotonic() + 30
+    while _alive(got["pid"]) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    _require(not _alive(got["pid"]), f"[cluster] the GPU worker (pid {got['pid']}) outlived its node")
+    waiting_after = still_pending("with no GPU node in the cluster")
+    t0 = time.perf_counter()
+    new_node = cluster.add_node(num_cpus=2, num_gpus=1)
+    moved = rt.get(pending, timeout=300)
+    handoff_s = time.perf_counter() - t0
+    _require(new_node.gpus == gpu_node.gpus and moved["node_id"] == new_node.node_id
+             and moved["visible"] == new_node.gpus[0],
+             f"[cluster] the pending task ran on {moved['node_id'][:12]} with CUDA_VISIBLE_DEVICES="
+             f"{moved['visible']!r}; the new node has cards {new_node.gpus}")
+    ctx.disconnect()
+    _log("cluster", f"{smi}: head (2 CPUs, no card) and a node with card {gpu_node.gpus} up and the driver "
+                    f"connected in {start_s:.3f} s; a second one-card node refused: {second_err!r}")
+    _log("cluster", f"{smi}: the GPU task on its node (CUDA_VISIBLE_DEVICES={got['visible']!r}) ran the "
+                    f"forward ({got['launches']} launches) {first_s:.3f} s after submit (worker start and "
+                    f"weights included); per-row losses through the queue bit-equal to the driver's; "
+                    f"summarize() GPU {before['resources_available'].get('GPU')} -> "
+                    f"{during['resources_available'].get('GPU', 0.0)} available while it ran; its worker's "
+                    f"stacks name the task")
+    _log("cluster", f"{smi}: a second GPU task pended ({waiting} pending lease(s)); remove_node: death "
+                    f"recorded in {death_s:.3f} s, the first task lost ({lost}), the second still pending "
+                    f"({waiting_after}); it ran on the new node's card {new_node.gpus} {handoff_s:.3f} s "
+                    f"after add_node")
+    return {"launches": {"fwd": got["launches"], "dq": 0, "dkv": 0}, "start_s": start_s,
+            "first_task_s": first_s, "death_event_s": death_s, "handoff_s": handoff_s}
+
+
 def _moe_hook(gpt2, record):
     """Wraps gpt2._moe_mlp so that each call records its input and its
     routing: (h, tokens routed, tokens past capacity).  Returns the
@@ -4070,6 +4760,16 @@ def main() -> int:
     ingest = phase_ingest(fa, gpt2, spmd, cfg, smi)
     torch.cuda.empty_cache()
     _log("done", f"[ingest] {time.perf_counter() - t_ingest:.1f} s")
+    # Compiled DAGs, a durable workflow and the multi-raylet Cluster, each
+    # driving GPT-2-124M from [train]'s seed on the card.
+    t0 = time.perf_counter()
+    dag_out = phase_dag(gpt2, cfg, smi)
+    t1 = time.perf_counter()
+    wf_out = phase_workflow(gpt2, cfg, tokens[0], train, smi)
+    t2 = time.perf_counter()
+    cluster_out = phase_cluster(gpt2, cfg, tokens[0], smi)
+    torch.cuda.empty_cache()
+    _log("done", f"[dag] {t1 - t0:.1f} s, [workflow] {t2 - t1:.1f} s, [cluster] {time.perf_counter() - t2:.1f} s")
     moe = phase_moe(fa, gpt2, spmd, tokens[0], gpt2.GPTConfig.gpt2_124m(
         num_experts=MOE_EXPERTS, attention_impl="flash", remat=False, scan_unroll=12))
     torch.cuda.empty_cache()
@@ -4127,11 +4827,15 @@ def main() -> int:
         entry["rllib_launches"] = rl_out["launches"][key]
         entry["ingest_launches"] = ingest["launches"][key]
         entry["podracer_launches"] = podracer["launches"][key]
+        entry["dag_launches"] = dag_out["launches"][key]
+        entry["workflow_launches"] = wf_out["launches"][key]
+        entry["cluster_launches"] = cluster_out["launches"][key]
     print(json.dumps({"forward_ms": fwd, "forward_path_fwd_launches": fwd_launches,
                       "train_step_ms": train["step_ms"], "train_tokens_per_s": train["tokens_per_s"],
                       "head_backward_ms": head, "runtime": runtime, "fit": fit, "tune": tune_out, "moe": moe,
                       "vit": vit_out, "spmd": spmd_out, "pipeline": pipe, "pipeline_mpmd": mpmd,
                       "rllib": rl_out, "ingest": ingest, "podracer": podracer, "dryrun": dryrun_lines,
+                      "dag": dag_out, "workflow": wf_out, "cluster": cluster_out,
                       **llama_out,
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))

@@ -52,10 +52,9 @@ class ActorMethod:
     def bind(self, *args):
         """Lazy DAG binding (ray: python/ray/dag/class_node.py).  Returns
         a ClassMethodNode for `experimental_compile()`."""
-        raise NotImplementedError(
-            "compiled DAGs need ray_tpu_torch.dag, which is not ported yet "
-            "(ROADMAP A9)"
-        )
+        from ray_tpu_torch.dag.compiled_dag import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._name, args)
 
     def remote(self, *args, **kwargs):
         rt = get_runtime()

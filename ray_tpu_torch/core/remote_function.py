@@ -54,10 +54,9 @@ class RemoteFunction:
     def bind(self, *args, **kwargs):
         """Lazy task-DAG binding (ray: python/ray/dag/function_node.py);
         consumed by ray_tpu_torch.workflow for durable graphs."""
-        raise NotImplementedError(
-            "task-DAG binding needs ray_tpu_torch.workflow, which is not "
-            "ported yet (ROADMAP A9)"
-        )
+        from ray_tpu_torch.workflow.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def remote(self, *args, **kwargs):
         from ray_tpu_torch.core.runtime import get_runtime

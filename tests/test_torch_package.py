@@ -185,6 +185,44 @@ def test_podracer_import_loads_no_jax_or_reference():
     assert out.stdout.strip() == "[]"
 
 
+def test_dag_workflow_state_cluster_import_loads_no_torch_or_jax():
+    """Compiled DAGs, workflows, events, the state API and the Cluster
+    harness are control-plane code: importing them loads neither torch nor
+    JAX (a workflow's storage reduces tensors through the serializer's
+    ``sys.modules`` lookup; the queue's and the client's modules load the
+    runtime's API, which is torch-free too)."""
+    code = ("import sys, ray_tpu_torch.dag, ray_tpu_torch.workflow, ray_tpu_torch.util.events, "
+            "ray_tpu_torch.util.state, ray_tpu_torch.util.queue, ray_tpu_torch.util.client, "
+            "ray_tpu_torch.cluster_utils; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'ray_tpu')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_bind_returns_dag_and_workflow_nodes():
+    """``ActorMethod.bind`` gives a compiled-DAG node and
+    ``RemoteFunction.bind`` a workflow node, with no runtime started; the
+    bound options travel with the node."""
+    import ray_tpu_torch
+    from ray_tpu_torch.common.ids import ActorID
+    from ray_tpu_torch.core.actor import ActorHandle
+    from ray_tpu_torch.dag.compiled_dag import ClassMethodNode, InputNode
+    from ray_tpu_torch.workflow.dag import FunctionNode
+
+    handle = ActorHandle(ActorID.random())
+    with InputNode() as inp:
+        node = handle.forward.bind(inp, 3)
+    assert isinstance(node, ClassMethodNode) and node.actor is handle
+    assert node.method_name == "forward" and node.args == (inp, 3)
+    fn = ray_tpu_torch.remote(num_gpus=1)(len)
+    step = fn.bind([1, 2], key="k")
+    assert isinstance(step, FunctionNode) and step.remote_fn is fn
+    assert step.args == ([1, 2],) and step.kwargs == {"key": "k"} and fn._opts["num_gpus"] == 1
+
+
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"gpt2.py", "llama.py", "llm.py", "flash_attention.py", "chip_smoke.py",
@@ -213,6 +251,13 @@ def test_port_files_found():
     data = {p.relative_to(REPO).as_posix() for p in PORT_FILES if p.parent.name == "data"}
     assert data == {f"ray_tpu_torch/data/{n}.py" for n in
                     ("__init__", "block", "datasource", "stats", "dataset", "read_api")}
+    slice14 = {"ray_tpu_torch/dag/__init__.py", "ray_tpu_torch/dag/channel.py",
+               "ray_tpu_torch/dag/compiled_dag.py", "ray_tpu_torch/workflow/__init__.py",
+               "ray_tpu_torch/workflow/api.py", "ray_tpu_torch/workflow/dag.py",
+               "ray_tpu_torch/workflow/storage.py", "ray_tpu_torch/util/events.py",
+               "ray_tpu_torch/util/state.py", "ray_tpu_torch/util/queue.py",
+               "ray_tpu_torch/util/client.py", "ray_tpu_torch/cluster_utils.py"}
+    assert slice14 <= {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     serving = {"controller.py", "handle.py", "proxy.py", "replica.py", "weights.py",
                "admission.py", "scheduler.py", "collective.py", "rpc_backend.py",
                "quantize.py", "quant.py"}

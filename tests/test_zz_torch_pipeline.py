@@ -171,17 +171,17 @@ def preemption_run(steps, seed, preempt_after_step=2, deadline_s=20.0, preemptio
     preemptible node, a seeded preemption of that node after
     ``preempt_after_step`` steps while training goes on (with
     ``preemptions=2``, the node the lane moved to is preempted in turn);
-    raylets started from ``core/node.py`` (``test_zz_torch_serve._Cluster``)."""
-    from test_zz_torch_serve import _Cluster
+    raylets of ``cluster_utils.Cluster``."""
+    from ray_tpu_torch.cluster_utils import Cluster
     from ray_tpu_torch.common.faults import ChaosController
     from ray_tpu_torch.core.runtime import get_runtime
 
     pc = parity_config("p2p", micro_batch=4, dp=2, name=f"accept{seed}")
-    cluster = _Cluster()
+    cluster = Cluster()
     try:
-        cluster.add_node(4, {"h": 8.0})
+        cluster.add_node(4, resources={"h": 8.0})
         rt.init(address=cluster.address, log_to_driver=False)
-        victim = cluster.add_node(1, {"pre": 1.0})
+        victim = cluster.add_node(1, resources={"pre": 1.0})
         cluster.wait_for_nodes()
         h = {"num_cpus": 0, "resources": {"h": 0.5}}
         v = {"num_cpus": 0, "resources": {"pre": 0.4}}
@@ -207,7 +207,7 @@ def preemption_run(steps, seed, preempt_after_step=2, deadline_s=20.0, preemptio
         chaos = ChaosController(cluster, seed=seed)
         states = []
         for _ in range(preemptions):
-            spare = cluster.add_node(1, {"pre": 1.0})
+            spare = cluster.add_node(1, resources={"pre": 1.0})
             cluster.wait_for_nodes()
             _, state = chaos.preempt_node(node=victim, deadline_s=deadline_s)
             states.append(state)
@@ -512,16 +512,16 @@ def test_checkpoint_blob_rides_the_object_plane():
     object plane (one blob object in the drain's status), the small one
     stays inline in the GCS; both move with their state and no restart
     spent, and the blob's record is gone after the restore."""
-    from test_zz_torch_serve import _Cluster
+    from ray_tpu_torch.cluster_utils import Cluster
     from ray_tpu_torch.common.faults import ChaosController
 
     with test_torch_runtime.runtime_defaults(), by_value():
         os.environ["RT_ACTOR_CKPT_INLINE_MAX_BYTES"] = "20000"
-        cluster = _Cluster()
+        cluster = Cluster()
         try:
-            cluster.add_node(2, {})
+            cluster.add_node(2, resources={})
             rt.init(address=cluster.address, log_to_driver=False)
-            victim = cluster.add_node(1, {"pre": 1.0})
+            victim = cluster.add_node(1, resources={"pre": 1.0})
             cluster.wait_for_nodes()
             opts = dict(num_cpus=0, resources={"pre": 0.3}, max_restarts=0)
             big = rt.remote(BigState).options(**opts).remote()
@@ -530,7 +530,7 @@ def test_checkpoint_blob_rides_the_object_plane():
             expect, pid0 = rt.get([big.total.remote(), big.pid.remote()], timeout=60)
             for _ in range(3):
                 rt.get(small.inc.remote(), timeout=60)
-            cluster.add_node(1, {"pre": 1.0})
+            cluster.add_node(1, resources={"pre": 1.0})
             cluster.wait_for_nodes()
             _, state = ChaosController(cluster, seed=17).preempt_node(node=victim, deadline_s=20.0)
             assert state == "drained", state

@@ -13,7 +13,6 @@ proxy needs aiohttp and the gRPC one grpc.
 
 import json
 import os
-import subprocess
 import sys
 import threading
 import time
@@ -26,7 +25,7 @@ import pytest
 import ray_tpu_torch as rt
 from ray_tpu_torch import serve
 from ray_tpu_torch.common.faults import ChaosController
-from ray_tpu_torch.core import node as node_mod
+from ray_tpu_torch.cluster_utils import Cluster
 from ray_tpu_torch.util import collective as col
 
 pytestmark = pytest.mark.slow
@@ -269,58 +268,6 @@ class TestServeOnCluster:
 
 # -- a collective rank migrates off a draining node and re-joins its group ---
 
-class _Cluster:
-    """Raylets on one host around one GCS, as the reference's
-    ``cluster_utils.Cluster`` starts them (not ported yet): enough for a
-    drain to move an actor from one node to another."""
-
-    class Node:
-        def __init__(self, proc, node_id):
-            self.proc, self.node_id = proc, node_id
-
-        def kill(self, graceful=True):
-            if self.proc.poll() is None:
-                self.proc.terminate() if graceful else self.proc.kill()
-            try:
-                self.proc.wait(timeout=5)
-            except subprocess.TimeoutExpired:
-                self.proc.kill()
-                self.proc.wait(timeout=5)
-
-    def __init__(self):
-        self.session_dir = node_mod.default_session_dir()
-        self.gcs_proc, self.address = node_mod.start_gcs(self.session_dir)
-        self._nodes, self.head_node = [], None
-
-    def add_node(self, num_cpus, resources):
-        proc, _addr, node_id, _store = node_mod.start_raylet(
-            self.address, self.session_dir, {"CPU": float(num_cpus), **resources})
-        node = self.Node(proc, node_id)
-        self._nodes.append(node)
-        self.head_node = self.head_node or node
-        return node
-
-    def wait_for_nodes(self, timeout=60):
-        deadline, want = time.monotonic() + timeout, {n.node_id for n in self._nodes}
-        while time.monotonic() < deadline:
-            if want <= {n["node_id"] for n in rt.nodes() if n["alive"]}:
-                return
-            time.sleep(0.1)
-        raise TimeoutError(f"nodes never all registered: {want}")
-
-    def remove_node(self, node, allow_graceful=True):
-        node.kill(graceful=allow_graceful)
-        self._nodes.remove(node)
-
-    def shutdown(self):
-        for node in list(self._nodes):
-            node.kill()
-        self._nodes.clear()
-        if self.gcs_proc.poll() is None:
-            self.gcs_proc.terminate()
-            self.gcs_proc.wait(timeout=5)
-
-
 class CkptRank:
     """A collective rank with user state: both migrate together."""
 
@@ -356,11 +303,11 @@ class TestDrainMigration:
         ``_rejoin_collective_group``), so an allreduce is bit-exact
         afterwards."""
         cloudpickle.register_pickle_by_value(sys.modules[__name__])
-        cluster = _Cluster()
+        cluster = Cluster()
         try:
-            cluster.add_node(2, {"h": 4.0})
+            cluster.add_node(2, resources={"h": 4.0})
             rt.init(address=cluster.address, log_to_driver=False)
-            victim = cluster.add_node(1, {"pre": 1.0})
+            victim = cluster.add_node(1, resources={"pre": 1.0})
             cluster.wait_for_nodes()
             rank = rt.remote(CkptRank)
             home = rank.options(num_cpus=0, resources={"h": 0.5}).remote()
@@ -375,7 +322,7 @@ class TestDrainMigration:
                 assert np.array_equal(out, want)
             pid = rt.get(moving._apply(lambda _: os.getpid()), timeout=60)
 
-            cluster.add_node(1, {"pre": 1.0})
+            cluster.add_node(1, resources={"pre": 1.0})
             cluster.wait_for_nodes()
             _, state = ChaosController(cluster, seed=3).preempt_node(node=victim, deadline_s=15.0)
             assert state == "drained", state
