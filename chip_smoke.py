@@ -323,6 +323,25 @@ and each drives GPT-2-124M from phase 6's seed-1 weights, B=8, S=1024:
      must pend; the node is removed (a hard kill): its death must be an
      event, the first task's error reach get(), the second still pend,
      and a new add_node(num_gpus=1) get the same card and run it there.
+  27. [job]: `python -m ray_tpu_torch start --head --num-cpus 4
+     --num-gpus 1` in a temp dir of its own; JobSubmissionClient submits
+     this script as a job's driver (--job-driver DIR), which attaches to
+     the cluster, loads [cluster]'s seed-1 GPT-2-124M weights from a file
+     the phase wrote and runs one flash forward on the card the head gave
+     it: the job must be SUCCEEDED, its log name the card, its per-row
+     losses and last logits equal the driver's bit for bit, with 12
+     forward launches and no JAX loaded; `status` and `list nodes` through
+     the CLI and the dashboard's /api/jobs and /api/nodes (urllib) must
+     show the job SUCCEEDED and GPU 1 on the head; `stop` must leave no
+     process of the session;
+  28. [autoscale]: an Autoscaler (one node type {"CPU": 2, "GPU": 1}, min
+     0, max 1) over a LocalSubprocessProvider, its passes run from a
+     thread, on a Cluster head with 2 CPUs and no card: a num_gpus=1 task
+     of the same forward must pend, make it launch a node with the card,
+     and give the driver's losses bit for bit with 12 forward launches;
+     the idle node must then be drained and removed and no lease pend.
+     Prints the seconds from the demand to the launch, to the task's
+     result and to the removal.
 The line before the last is a JSON object {"kernels": [...]} with each
 kernel's launches on the training path (the forward kernel's in the
 runtime's GPU worker, "runtime_launches"; each kernel's in the trainer's
@@ -332,11 +351,14 @@ through the pipeline's stage programs, "pipeline_launches", in
 [rllib], "rllib_launches", in the [ingest] worker, "ingest_launches",
 in [podracer], "podracer_launches", in the [dag]'s GPU stage over the DAG's
 iterations, "dag_launches", in [workflow]'s train and eval workers,
-"workflow_launches", and in [cluster]'s GPU task, "cluster_launches"),
+"workflow_launches", in [cluster]'s GPU task, "cluster_launches", in
+[job]'s submitted driver, "job_launches", and in [autoscale]'s task,
+"autoscale_launches"),
 error against its plain version,
 time, the plain version's time, the library call's time and the card's
 bound; the last line is {"ok": true, "device": {...}}.  With no CUDA device
-it prints no result and exits 2.
+it prints no result and exits 2.  `chip_smoke.py --job-driver DIR` is
+[job]'s submitted driver, not a smoke run.
 """
 
 from __future__ import annotations
@@ -351,7 +373,10 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 
 import torch
 
@@ -4074,6 +4099,332 @@ def _cluster_checks(cluster, gpt2, cfg, tokens, t_start, smi):
             "first_task_s": first_s, "death_event_s": death_s, "handoff_s": handoff_s}
 
 
+JOB_TIMEOUT_S = 300
+AUTOSCALE_IDLE_S = 2.0  # [autoscale]: idle seconds before a drain
+AUTOSCALE_PASS_S = 0.2  # [autoscale]: seconds between reconcile passes
+
+
+def _cli(args, env):
+    """``python -m ray_tpu_torch <args>`` from the checkout's root."""
+    return subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args], env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=120)
+
+
+def _session_pids(session_dir):
+    """Live processes of a runtime session: those naming its dir on the
+    command line (GCS, raylet) or in RT_SESSION_DIR (workers)."""
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+            with open(f"/proc/{d}/environ", "rb") as f:
+                env = f.read()
+        except OSError:
+            continue
+        if (session_dir.encode() in cmd or f"RT_SESSION_DIR={session_dir}\0".encode() in env) and _alive(int(d)):
+            pids.append(int(d))
+    return pids
+
+
+def job_driver(workdir):
+    """[job]'s submitted driver: attach to the cluster the job runs in,
+    build GPT-2-124M on the card the head gave this process from the
+    weights the phase wrote, run one counted flash forward, and print the
+    card's name, per-row losses and launches; the rows and the last
+    position's logits go to a file for the bit-for-bit check."""
+    import ray_tpu_torch
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    ray_tpu_torch.init(address=os.environ["RT_ADDRESS"], log_to_driver=False)
+    try:
+        cluster_gpus = ray_tpu_torch.cluster_resources().get("GPU")
+        inputs = torch.load(os.path.join(workdir, "job_inputs.pt"), weights_only=False)
+        dev = _card(inputs["device"])
+        _, model = _build_gpt2(inputs["state"], inputs["cfg"], dev)
+        fa.flash_attention_fwd.launches = 0
+        rows, last = _rows_forward(model, inputs["tokens"].to(dev))
+        launches = fa.flash_attention_fwd.launches
+        torch.save({"rows": rows.cpu(), "last": last.cpu()}, os.path.join(workdir, "job_result.pt"))
+        card = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+        print("JOB " + json.dumps({**_worker_facts(), "card": card, "cluster_gpus": cluster_gpus,
+                                   "rows": rows.tolist(), "launches": launches}), flush=True)
+    finally:
+        ray_tpu_torch.shutdown()
+    return 0
+
+
+def _get_json(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read().decode())
+
+
+def phase_job(gpt2, cfg, tokens, smi):
+    """[job]: a CLI-started head with the card, a job's driver running
+    GPT-2-124M's forward there, the job and the head's card through the
+    CLI and the dashboard, then `stop`."""
+    t_start = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="rt_job_")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["TMPDIR"] = workdir  # the CLI session's file and dirs are the phase's own
+    session = None
+    try:
+        out = _cli(["start", "--head", "--num-cpus", "4", "--num-gpus", "1"], env)
+        _require(out.returncode == 0, f"[job] start failed: {out.stderr[-2000:]}")
+        with open(os.path.join(workdir, "ray_tpu_torch", "latest_cli_session.json")) as f:
+            session = json.load(f)
+        start_s = time.perf_counter() - t_start
+        out_ = _job_checks(gpt2, cfg, tokens, env, workdir, session, out.stdout, smi)
+        t0 = time.perf_counter()
+        out = _cli(["stop"], env)
+        _require(out.returncode == 0 and "stopped 2 control-plane processes" in out.stdout,
+                 f"[job] stop: {out.stdout} {out.stderr[-2000:]}")
+        deadline = time.monotonic() + 30
+        while _session_pids(session["session_dir"]) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        left = {p: _cmdline(p) for p in _session_pids(session["session_dir"])}
+        _require(not left, f"[job] processes of the CLI session left after stop: {left}")
+        stop_s = time.perf_counter() - t0
+        session = None
+    finally:
+        if session is not None:  # a failed phase: take the session down all the same
+            _cli(["stop"], env)
+            for pid in _session_pids(session["session_dir"]):
+                os.kill(pid, 9)
+    _log("job", f"{smi}: head started by the CLI in {start_s:.3f} s; stop took {stop_s:.3f} s and left no "
+                f"process of the session; [job] {time.perf_counter() - t_start:.1f} s in all")
+    return {**out_, "start_s": start_s, "stop_s": stop_s}
+
+
+def _job_checks(gpt2, cfg, tokens, env, workdir, session, started, smi):
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
+    from ray_tpu_torch.job_submission import SUCCEEDED, JobSubmissionClient
+
+    addr = session["gcs_address"]
+    cards = re.findall(r"GPUs: +1 \(cards: ([^,)]+)\)", started)
+    _require(len(cards) == 1, f"[job] the head did not record its one card: {started}")
+    model, state = _seed1_state(gpt2, cfg, DEVICE)
+    want_rows, want_last = (t.cpu() for t in _rows_forward(model, tokens.to(DEVICE)))
+    del model
+    t0 = time.perf_counter()
+    torch.save({"state": state, "cfg": cfg, "tokens": tokens.cpu(), "device": DEVICE},
+               os.path.join(workdir, "job_inputs.pt"))
+    write_s = time.perf_counter() - t0
+    del state
+    client = JobSubmissionClient(addr)
+    t0 = time.perf_counter()
+    job = client.submit_job(entrypoint=f"{sys.executable} {os.path.abspath(__file__)} --job-driver {workdir}",
+                            metadata={"phase": "job"})
+    status = client.wait_until_finished(job, timeout=JOB_TIMEOUT_S)
+    job_s = time.perf_counter() - t0
+    logs = client.get_job_logs(job)
+    _require(status == SUCCEEDED, f"[job] the job ended {status}; its log:\n{logs[-4000:]}")
+    (line,) = [ln for ln in logs.splitlines() if ln.startswith("JOB ")]
+    got = json.loads(line[4:])
+    result = torch.load(os.path.join(workdir, "job_result.pt"))
+    card = torch.cuda.get_device_name(0) if DEVICE == "cuda" else "cpu"
+    _require(got["card"] == card and got["visible"] == cards[0] and not got["foreign"],
+             f"[job] the driver ran on {got['card']!r} with CUDA_VISIBLE_DEVICES={got['visible']!r}, "
+             f"loaded {got['foreign']}")
+    _require(got["launches"] == cfg.num_layers, f"[job] forward launches {got['launches']}")
+    _require(_bit_equal(result["rows"], want_rows) and _bit_equal(result["last"], want_last)
+             and got["rows"] == want_rows.tolist(),
+             f"[job] the job's per-row losses differ from the driver's: max |d| "
+             f"{(result['rows'] - want_rows).abs().max().item():.3g}")
+    # The CLI and the dashboard on the same cluster.
+    status_out = _cli(["status", "--address", addr], env)
+    _require(status_out.returncode == 0 and "/1 GPU" in status_out.stdout,
+             f"[job] status: {status_out.stdout} {status_out.stderr[-2000:]}")
+    out = _cli(["list", "nodes", "--address", addr], env)
+    nodes = json.loads(out.stdout) if out.returncode == 0 else out.stderr
+    _require(isinstance(nodes, list) and len(nodes) == 1 and nodes[0]["resources_total"].get("GPU") == 1,
+             f"[job] list nodes: {nodes}")
+    t0 = time.perf_counter()
+    rt.init(address=addr, log_to_driver=False)
+    try:
+        url = start_dashboard(port=0)
+        dash_jobs = {j["submission_id"]: j for j in _get_json(f"{url}/api/jobs")}
+        dash_nodes = _get_json(f"{url}/api/nodes")
+        page = urllib.request.urlopen(f"{url}/nodes", timeout=60).read().decode()
+        stop_dashboard()
+    finally:
+        rt.shutdown()
+    dash_s = time.perf_counter() - t0
+    _require(dash_jobs.get(job, {}).get("status") == SUCCEEDED, f"[job] /api/jobs: {dash_jobs}")
+    _require(len(dash_nodes) == 1 and dash_nodes[0]["resources_total"].get("GPU") == 1
+             and "&quot;GPU&quot;: 1" in page, f"[job] /api/nodes: {dash_nodes}")
+    _log("job", f"{smi}: job {job} SUCCEEDED {job_s:.3f} s after submit (driver start, attach, torch import, "
+                f"weights read, model build and forward; the weights file was written in {write_s:.3f} s); "
+                f"its log names the card {got['card']!r} (CUDA_VISIBLE_DEVICES={got['visible']!r}, cluster "
+                f"GPU {got['cluster_gpus']}); {got['launches']} forward launches; per-row losses and last "
+                f"logits bit-equal to the driver's: {['%.6f' % r for r in got['rows']]}")
+    _log("job", f"{smi}: `status` shows {[ln.strip() for ln in status_out.stdout.splitlines() if 'GPU' in ln]} "
+                f"and `list nodes` GPU {nodes[0]['resources_total'].get('GPU')} on the head; the dashboard "
+                f"(started, read and stopped in {dash_s:.3f} s) shows the job {dash_jobs[job]['status']} "
+                f"and the head's GPU {dash_nodes[0]['resources_total'].get('GPU')}")
+    return {"launches": {"fwd": got["launches"], "dq": 0, "dkv": 0}, "job_s": job_s, "weights_write_s": write_s,
+            "dashboard_s": dash_s}
+
+
+def _autoscale_forward(refs, cfg, tokens, device):
+    """[autoscale]'s task: GPT-2-124M on the card of the node launched for
+    it, one counted forward."""
+    import ray_tpu_torch
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    dev = _card(device)
+    _, model = _build_gpt2(ray_tpu_torch.get(refs[0]), cfg, dev)
+    fa.flash_attention_fwd.launches = 0
+    rows, last = _rows_forward(model, tokens.to(dev))
+    return {**_card_facts(), "node_id": ray_tpu_torch.get_runtime_context().node_id,
+            "node_cards": os.environ.get("RT_GPU_VISIBLE_DEVICES"), "rows": rows.cpu(), "last": last.cpu(),
+            "launches": fa.flash_attention_fwd.launches}
+
+
+class _Reconciler(threading.Thread):
+    """Runs an Autoscaler's reconcile passes every ``interval`` s on a
+    loop of its own until stopped; the first error ends it and is kept
+    (the monitor's own loop logs and goes on)."""
+
+    def __init__(self, scaler, interval):
+        super().__init__(daemon=True)
+        self.scaler, self.interval = scaler, interval
+        self.stopped, self.passes, self.error = threading.Event(), 0, None
+
+    def run(self):
+        import asyncio
+
+        from ray_tpu_torch.core import rpc
+
+        async def go():
+            self.scaler.gcs = rpc.ReconnectingConnection(self.scaler.gcs_address, name="autoscaler->gcs")
+            try:
+                while not self.stopped.is_set():
+                    await self.scaler.reconcile()
+                    self.passes += 1
+                    await asyncio.sleep(self.interval)
+            finally:
+                await self.scaler.gcs.close()
+
+        try:
+            asyncio.run(go())
+        except BaseException as e:  # noqa: BLE001 - kept, and raised by the phase
+            self.error = e
+
+    def check(self):
+        _require(self.error is None and self.is_alive(), f"[autoscale] the reconcile passes failed: {self.error!r}")
+
+
+def phase_autoscale(gpt2, cfg, tokens, smi):
+    """[autoscale]: a one-GPU node type scaled up for a pending one-card
+    task, then drained and removed once idle."""
+    from ray_tpu_torch.autoscaler import Autoscaler, AutoscalerConfig, LocalSubprocessProvider, NodeTypeConfig
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    t0 = time.perf_counter()
+    cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 2})
+    provider = LocalSubprocessProvider(cluster.gcs_address, cluster.session_dir)
+    scaler = Autoscaler(cluster.gcs_address, provider, AutoscalerConfig(
+        node_types=[NodeTypeConfig("gpu1", {"CPU": 2, "GPU": 1}, min_workers=0, max_workers=1)],
+        idle_timeout_s=AUTOSCALE_IDLE_S, interval_s=AUTOSCALE_PASS_S))
+    passes = _Reconciler(scaler, AUTOSCALE_PASS_S)
+    try:
+        out = _autoscale_checks(cluster, provider, passes, gpt2, cfg, tokens, t0, smi)
+    finally:
+        import ray_tpu_torch as rt
+
+        passes.stopped.set()
+        if passes.is_alive():
+            passes.join(timeout=30)
+        provider.shutdown()
+        if rt.is_initialized():
+            rt.shutdown()
+        cluster.shutdown()
+        deadline = time.monotonic() + 15
+        while _descendants(os.getpid()) and time.monotonic() < deadline:
+            time.sleep(0.1)
+    left = {p: _cmdline(p) for p in _descendants(os.getpid())}
+    _require(not left, f"[autoscale] processes left after shutdown: {left}")
+    _log("autoscale", f"[autoscale] {time.perf_counter() - t0:.1f} s in all; no process of the driver remains")
+    return out
+
+
+def _autoscale_checks(cluster, provider, passes, gpt2, cfg, tokens, t_start, smi):
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import state as rt_state
+
+    cluster.connect()
+    _require(not rt.cluster_resources().get("GPU"), "[autoscale] the head has a card")
+    model, state = _seed1_state(gpt2, cfg, DEVICE)
+    want_rows, want_last = (t.cpu() for t in _rows_forward(model, tokens.to(DEVICE)))
+    del model
+    ref = rt.put(state)
+    del state
+    passes.start()
+    deadline = time.monotonic() + 30
+    while not passes.passes and time.monotonic() < deadline:  # the node type reported to the GCS
+        passes.check()
+        time.sleep(0.05)
+    passes.check()
+    start_s = time.perf_counter() - t_start
+    t_demand = time.perf_counter()
+    fut = rt.remote(num_gpus=1, max_retries=0)(_autoscale_forward).remote([ref], cfg, tokens.cpu(), DEVICE)
+    nodes, waiting = [], 0
+    deadline = time.monotonic() + 120
+    while not nodes and time.monotonic() < deadline:
+        passes.check()
+        waiting = max(waiting, rt_state.summarize()["pending_leases"])
+        nodes = provider.non_terminated_nodes()
+        time.sleep(0.05)
+    launch_s = time.perf_counter() - t_demand
+    _require(len(nodes) == 1 and nodes[0].node_type == "gpu1", f"[autoscale] nodes launched: {nodes}")
+    _require(waiting >= 1, "[autoscale] the one-card task never pended")
+    node = nodes[0]
+    got = rt.get(fut, timeout=600)
+    first_s = time.perf_counter() - t_demand
+    passes.check()
+    _check_worker(got, "[autoscale] GPU task")
+    _require(got["node_id"] == node.node_id_hex and got["visible"] == node.meta["gpus"][0] == got["node_cards"]
+             and (DEVICE == "cpu" or got["device_count"] == 1),
+             f"[autoscale] the task ran on {got['node_id'][:12]} with CUDA_VISIBLE_DEVICES={got['visible']!r} "
+             f"(node cards {got['node_cards']!r}); the launched node {node.node_id_hex[:12]} has {node.meta}")
+    _require(got["launches"] == cfg.num_layers, f"[autoscale] forward launches {got['launches']}")
+    _require(_bit_equal(got["rows"], want_rows) and _bit_equal(got["last"], want_last),
+             f"[autoscale] the task's per-row losses differ from the driver's: max |d| "
+             f"{(got['rows'] - want_rows).abs().max().item():.3g}")
+    deadline = time.monotonic() + 120
+    while provider.non_terminated_nodes() and time.monotonic() < deadline:
+        passes.check()
+        time.sleep(0.1)
+    removed_s = time.perf_counter() - t_demand
+    passes.check()
+    _require(not provider.non_terminated_nodes(), "[autoscale] the idle GPU node was never removed")
+    deadline = time.monotonic() + 30
+    while True:  # the GCS sees the terminated raylet's death
+        row = {n["node_id"]: n for n in rt_state.list_nodes()}[node.node_id_hex]
+        if not row["alive"] or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    after = rt_state.summarize()
+    _require(not row["alive"] and after["pending_leases"] == 0 and not after["resources_total"].get("GPU"),
+             f"[autoscale] after the drain: node alive {row['alive']}, {after['pending_leases']} pending, "
+             f"{after['resources_total']}")
+    _log("autoscale", f"{smi}: head (2 CPUs, no card) up and the first pass made in {start_s:.3f} s; a "
+                      f"num_gpus=1 task pended ({waiting} lease(s)); node {node.node_id_hex[:12]} with card "
+                      f"{node.meta['gpus']} launched {launch_s:.3f} s after the demand; the task's forward "
+                      f"({got['launches']} launches, CUDA_VISIBLE_DEVICES={got['visible']!r}) returned "
+                      f"{first_s:.3f} s after it, per-row losses bit-equal to the driver's; the idle node "
+                      f"was drained and removed {removed_s:.3f} s after it ({passes.passes} passes, idle "
+                      f"timeout {AUTOSCALE_IDLE_S} s), no lease pending")
+    return {"launches": {"fwd": got["launches"], "dq": 0, "dkv": 0}, "start_s": start_s,
+            "demand_to_launch_s": launch_s, "demand_to_first_task_s": first_s,
+            "demand_to_removal_s": removed_s}
+
+
 def _moe_hook(gpt2, record):
     """Wraps gpt2._moe_mlp so that each call records its input and its
     routing: (h, tokens routed, tokens past capacity).  Returns the
@@ -4770,6 +5121,14 @@ def main() -> int:
     cluster_out = phase_cluster(gpt2, cfg, tokens[0], smi)
     torch.cuda.empty_cache()
     _log("done", f"[dag] {t1 - t0:.1f} s, [workflow] {t2 - t1:.1f} s, [cluster] {time.perf_counter() - t2:.1f} s")
+    # The operator surface: a CLI-started head running a submitted job on
+    # the card, then an autoscaler launching a GPU node for a pending task.
+    t0 = time.perf_counter()
+    job_out = phase_job(gpt2, cfg, tokens[0], smi)
+    t1 = time.perf_counter()
+    autoscale_out = phase_autoscale(gpt2, cfg, tokens[0], smi)
+    torch.cuda.empty_cache()
+    _log("done", f"[job] {t1 - t0:.1f} s, [autoscale] {time.perf_counter() - t1:.1f} s")
     moe = phase_moe(fa, gpt2, spmd, tokens[0], gpt2.GPTConfig.gpt2_124m(
         num_experts=MOE_EXPERTS, attention_impl="flash", remat=False, scan_unroll=12))
     torch.cuda.empty_cache()
@@ -4830,12 +5189,15 @@ def main() -> int:
         entry["dag_launches"] = dag_out["launches"][key]
         entry["workflow_launches"] = wf_out["launches"][key]
         entry["cluster_launches"] = cluster_out["launches"][key]
+        entry["job_launches"] = job_out["launches"][key]
+        entry["autoscale_launches"] = autoscale_out["launches"][key]
     print(json.dumps({"forward_ms": fwd, "forward_path_fwd_launches": fwd_launches,
                       "train_step_ms": train["step_ms"], "train_tokens_per_s": train["tokens_per_s"],
                       "head_backward_ms": head, "runtime": runtime, "fit": fit, "tune": tune_out, "moe": moe,
                       "vit": vit_out, "spmd": spmd_out, "pipeline": pipe, "pipeline_mpmd": mpmd,
                       "rllib": rl_out, "ingest": ingest, "podracer": podracer, "dryrun": dryrun_lines,
-                      "dag": dag_out, "workflow": wf_out, "cluster": cluster_out,
+                      "dag": dag_out, "workflow": wf_out, "cluster": cluster_out, "job": job_out,
+                      "autoscale": autoscale_out,
                       **llama_out,
                       "card": smi}))
     print(json.dumps({"kernels": kernels}))
@@ -4848,4 +5210,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--job-driver"]:
+        sys.exit(job_driver(sys.argv[2]))
     sys.exit(main())

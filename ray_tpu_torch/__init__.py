@@ -18,7 +18,7 @@ exactly its cards through ``CUDA_VISIBLE_DEVICES``; every other lease sees
 none (``core/raylet.py``).
 """
 
-__version__ = "0.1.0"
+from ray_tpu_torch._version import version as __version__
 
 
 def __getattr__(name):

@@ -243,6 +243,9 @@ class Scheduler:
         ]
         self._node_entry: Dict[NodeID, NodeEntry] = {}  # indexed entry
         self._feasible_cache: Dict[tuple, bool] = {}
+        # the node shapes an attached autoscaler can launch
+        # (rpc_get_autoscaler_state): a demand one of them covers queues
+        self.launchable: List[ResourceSet] = []
         # no-fit fast path: when nothing in the cluster fits a demand,
         # every queued waiter re-asks constantly (kick scans) — a full
         # fail scan touches the whole "full" bucket, O(nodes).  A no-fit
@@ -321,7 +324,7 @@ class Scheduler:
             hit = any(
                 n.alive and n.resources_total.covers(demand)
                 for n in self.gcs.nodes.values()
-            )
+            ) or any(r.covers(demand) for r in self.launchable)
             self._feasible_cache[key] = hit
         return hit
 
@@ -2195,7 +2198,16 @@ class GcsServer:
 
     async def rpc_get_autoscaler_state(self, conn, p):
         """Demand/usage view for the autoscaler's reconcile loop (ray:
-        autoscaler/v2 GetClusterResourceState — scheduler.py:624)."""
+        autoscaler/v2 GetClusterResourceState — scheduler.py:624).  The
+        caller's ``node_types`` (resource dicts) are what it can launch:
+        from then on a lease that only such a node could hold is queued
+        as demand, as Ray queues an infeasible task for its autoscaler,
+        where without them it is refused at once."""
+        if p and p.get("node_types") is not None:
+            self.scheduler.launchable = [
+                ResourceSet(r) for r in p["node_types"]
+            ]
+            self.scheduler._feasible_cache.clear()
         pending = [
             {"demand": pl.demand.to_dict(), "strategy": pl.strategy,
              "age_s": time.monotonic() - pl.enqueued_at}

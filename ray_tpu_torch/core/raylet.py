@@ -293,6 +293,7 @@ class Raylet:
         self._closing = True
         for t in self._tasks:
             t.cancel()
+        await self._leave_cluster()
         for w in list(self.workers.values()):
             try:
                 w.proc.terminate()
@@ -308,6 +309,33 @@ class Raylet:
         await self.server.close()
         if self.store:
             self.store.destroy()
+
+    async def _leave_cluster(self):
+        """A graceful shutdown (SIGTERM, ``shutdown_node``) tells the GCS
+        first that this node is going: it is marked draining there, so no
+        lease is granted to it from here on, and a queued lease waits for
+        another node, as after a hard kill.  The GCS then sees the node
+        die when this process exits.  The reference stops its workers
+        first, and a lease queued for their resources can be granted to
+        the dying node, where it neither runs nor fails (ROADMAP C4)."""
+        if self.draining or self.gcs is None:
+            return  # a drain is under way: the GCS knows already
+        self.draining = True  # refuse a grant already in flight
+        # the live connection only, never a redial: in a whole-cluster
+        # shutdown the GCS is going too, and nothing is left to tell
+        conn = self.gcs.current
+        if conn is None or conn.closed:
+            return
+        try:
+            await conn.call(
+                "drain_node",
+                {"node_id": self.node_id.hex(), "reason": "shutdown",
+                 "deadline_s": cfg.drain_deadline_default_s},
+                timeout=2.0,
+            )
+        except Exception:
+            logger.warning("raylet %s: leave notice to the GCS failed",
+                           self.node_id, exc_info=True)
 
     async def _heartbeat_loop(self):
         while True:
@@ -584,15 +612,18 @@ class Raylet:
           preemption deterministically (``delay_s`` carries the
           announced deadline; 0/default falls back to
           ``cfg.drain_deadline_default_s``);
-        - the GCE metadata stub (``RT_PREEMPT_METADATA``), which needs
-          the autoscaler and raises until it is ported (ROADMAP A9).
+        - the GCE metadata stub (``RT_PREEMPT_METADATA``), which lives
+          with the TPU-slice provider and raises until that is ported
+          (ROADMAP A4).
         """
         source = None
         if os.environ.get("RT_PREEMPT_METADATA"):
-            # the metadata stub lives in the autoscaler, not ported yet
+            # the reference's GceMetadataPreemption sits in its TPU-slice
+            # provider, whose GPU counterpart is still to be decided
             raise NotImplementedError(
-                "RT_PREEMPT_METADATA needs ray_tpu_torch.autoscaler, which "
-                "is not ported yet (ROADMAP A9)"
+                "RT_PREEMPT_METADATA needs the GCE metadata preemption "
+                "watcher of the TPU-slice provider (tpu_provider.py, "
+                "gce_tpu_api.py), which is not ported yet (ROADMAP A4)"
             )
         while True:
             await asyncio.sleep(cfg.preempt_poll_interval_s)

@@ -1501,6 +1501,16 @@ class Runtime:
             while len(ready) < num_returns:
                 remaining = None if deadline is None else deadline - time.monotonic()
                 if remaining is not None and remaining <= 0:
+                    # A spent deadline (timeout=0 included) still reports
+                    # what is ready: one turn of the loop runs each
+                    # resolution to its first wait, so a ref resolved
+                    # before the call counts, as in Ray.  The reference
+                    # leaves here before looking and returns none ready.
+                    await asyncio.sleep(0)
+                    for r in list(pending):
+                        if futs[r].done() and len(ready) < num_returns:
+                            pending.remove(r)
+                            ready.append(r)
                     break
                 done, _ = await asyncio.wait(
                     [futs[r] for r in pending],

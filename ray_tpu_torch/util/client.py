@@ -15,8 +15,8 @@ protocol — no second serialization layer, no proxy server to babysit.
         value = ray_tpu_torch.get(ref)
 
 The driver binds no card of its own: cards go only to the leases of the
-tasks and actors it submits.  The port has no job-submission client yet
-(``job_submission.py`` is still to port, ROADMAP A9).
+tasks and actors it submits.  A driver run on the head as a submitted job
+(``ray_tpu_torch.job_submission``) sees the head's cards instead.
 """
 
 from __future__ import annotations

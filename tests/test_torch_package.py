@@ -55,10 +55,12 @@ def test_no_reference_module_strings(path):
 # loaded only by a group that asks for it, in a process of a torch gang.
 DATA_PLANE = ("ray_tpu_torch/serve/llm.py", "ray_tpu_torch/util/collective/nccl_backend.py")
 CONTROL_PLANE = sorted(
-    p for d in ("common", "_native", "accelerators", "util/collective", "serve", "serve/traffic")
+    p for d in ("common", "_native", "accelerators", "util/collective", "serve", "serve/traffic", "autoscaler")
     for p in (REPO / "ray_tpu_torch" / d).glob("*.py")
     if p.relative_to(REPO).as_posix() not in DATA_PLANE
-) + [REPO / "ray_tpu_torch" / "core" / f for f in ("gcs.py", "raylet.py", "node.py")]
+) + [REPO / "ray_tpu_torch" / "core" / f for f in ("gcs.py", "raylet.py", "node.py")] + [
+    REPO / "ray_tpu_torch" / f for f in ("scripts.py", "__main__.py", "_version.py", "job_submission.py",
+                                         "dashboard.py")]
 
 
 @pytest.mark.parametrize("path", CONTROL_PLANE, ids=lambda p: str(p.relative_to(REPO)))
@@ -202,6 +204,23 @@ def test_dag_workflow_state_cluster_import_loads_no_torch_or_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_operator_surface_import_loads_no_torch_or_jax():
+    """The CLI, job submission, the dashboard and the autoscaler are
+    control-plane code: importing them loads neither torch nor JAX nor any
+    module of the JAX package, and neither the dashboard's aiohttp nor the
+    launcher's PyYAML, which the functions that serve or read load."""
+    code = ("import sys, ray_tpu_torch.scripts, ray_tpu_torch.job_submission, ray_tpu_torch.dashboard, "
+            "ray_tpu_torch.autoscaler, ray_tpu_torch.autoscaler.launcher, "
+            "ray_tpu_torch.autoscaler.k8s_provider, ray_tpu_torch._version; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'ray_tpu', 'aiohttp', 'yaml')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_bind_returns_dag_and_workflow_nodes():
     """``ActorMethod.bind`` gives a compiled-DAG node and
     ``RemoteFunction.bind`` a workflow node, with no runtime started; the
@@ -258,6 +277,12 @@ def test_port_files_found():
                "ray_tpu_torch/util/state.py", "ray_tpu_torch/util/queue.py",
                "ray_tpu_torch/util/client.py", "ray_tpu_torch/cluster_utils.py"}
     assert slice14 <= {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    operator = {f"ray_tpu_torch/{n}.py" for n in ("scripts", "__main__", "_version", "job_submission",
+                                                   "dashboard")}
+    autoscaler = {p.relative_to(REPO).as_posix() for p in PORT_FILES if p.parent.name == "autoscaler"}
+    assert operator <= {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    assert autoscaler == {f"ray_tpu_torch/autoscaler/{n}.py" for n in
+                          ("__init__", "autoscaler", "node_provider", "launcher", "k8s_provider")}
     serving = {"controller.py", "handle.py", "proxy.py", "replica.py", "weights.py",
                "admission.py", "scheduler.py", "collective.py", "rpc_backend.py",
                "quantize.py", "quant.py"}

@@ -398,6 +398,21 @@ class TestOnCluster:
         with pytest.raises(ValueError, match="no TPU"):
             rt.remote(num_tpus=1)(_hold).remote(0)
 
+    def test_wait_timeout_zero_returns_resolved_refs(self):
+        """``wait(refs, timeout=0)`` reports every ref already resolved (a
+        put and a finished task's result) as ready, and a running one as
+        not, as Ray does.  The reference's ``wait`` leaves on the spent
+        deadline before it looks, and returns none of them ready
+        (ROADMAP C5)."""
+        done = rt.remote(_hold).remote(0)
+        rt.get(done)
+        put = rt.put({"resolved": True})
+        running = rt.remote(_hold).remote(30)
+        ready, not_ready = rt.wait([done, put, running], num_returns=3, timeout=0)
+        assert ready == [done, put] and not_ready == [running]
+        assert rt.wait([put, done], timeout=0) == ([put], [done])
+        rt.cancel(running, force=True)
+
     def test_process_boundary(self):
         group = port_api._node_group
         assert group.session_dir.startswith(os.path.join(session_root(), "session_"))

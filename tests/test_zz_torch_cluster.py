@@ -163,14 +163,7 @@ def _hold(t):
     return os.getpid()
 
 
-def test_queued_gpu_lease_survives_a_hard_node_kill(by_value, monkeypatch):
-    """[cluster]'s hand-over on the CPU, with one declared card: while a
-    task holds the card a second GPU task queues; the node is killed hard
-    (its death an event, the holder's error at get()); the queued task
-    still pends, and runs on the next node given the same card.  A
-    graceful removal is not used: it stops the node's workers before the
-    GCS sees the node die, and the GCS may then grant the queued lease on
-    the dying raylet (ROADMAP C)."""
+def _queued_lease_handover(monkeypatch, graceful, get_timeout):
     from ray_tpu_torch.util import events, state
 
     monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
@@ -187,7 +180,7 @@ def test_queued_gpu_lease_survives_a_hard_node_kill(by_value, monkeypatch):
                 time.sleep(0.1)
             queued = rt.remote(num_gpus=1)(_card).remote(0)
             assert not rt.wait([queued], timeout=1.0)[0]
-            c.remove_node(gpu, allow_graceful=False)
+            c.remove_node(gpu, allow_graceful=graceful)
             with pytest.raises(rt.RayTpuError) as e:
                 rt.get(holder, timeout=60)
             assert not isinstance(e.value, rt.GetTimeoutError)
@@ -196,8 +189,26 @@ def test_queued_gpu_lease_survives_a_hard_node_kill(by_value, monkeypatch):
             assert not rt.wait([queued], timeout=1.0)[0] and state.summarize()["pending_leases"] >= 1
             new = c.add_node(num_cpus=1, num_gpus=1)
             assert new.gpus == gpu.gpus == ["0"]
-            assert rt.get(queued, timeout=120) == ("0", new.node_id)
+            assert rt.get(queued, timeout=get_timeout) == ("0", new.node_id)
         finally:
             rt.shutdown()
             c.shutdown()
             os.environ.pop("RT_GPU_COUNT_OVERRIDE", None)
+
+
+def test_queued_gpu_lease_survives_a_hard_node_kill(by_value, monkeypatch):
+    """[cluster]'s hand-over on the CPU, with one declared card: while a
+    task holds the card a second GPU task queues; the node is killed hard
+    (its death an event, the holder's error at get()); the queued task
+    still pends, and runs on the next node given the same card."""
+    _queued_lease_handover(monkeypatch, graceful=False, get_timeout=120)
+
+
+def test_queued_gpu_lease_survives_a_graceful_node_removal(by_value, monkeypatch):
+    """The same hand-over through a graceful removal (SIGTERM): the raylet
+    tells the GCS it is leaving before it stops its workers, so the queued
+    lease is not granted to the dying node and runs on the next one within
+    the 60-s get().  The reference stops its workers first, and the GCS can
+    grant the queued lease on the dying raylet, where it neither runs nor
+    fails: its get() runs past 60 s (ROADMAP C4)."""
+    _queued_lease_handover(monkeypatch, graceful=True, get_timeout=60)
